@@ -1,0 +1,28 @@
+"""cl_ops_tpu_torch — the PyTorch/CUDA port of cl_ops_tpu for NVIDIA Hopper.
+
+Same entry points and results as the JAX package `cl_ops_tpu`, which stays
+beside it as the reference; the sort's compare-exchange kernels are CUDA C++
+for sm_90a (`csrc/`), built with nvcc at first CUDA use. Functions given
+tensors run where their tensors lie (CPU tensors take each kernel's plain
+PyTorch version); entry points that take host data or generate data run on
+"cuda" unless given `device=`.
+
+Layer map (mirrors cl_ops_tpu):
+  core/     — dtype registry, op registries, errors
+  utils/    — bit helpers, device selection, kernel build
+  interop   — bit-exact numpy <-> torch hand-over
+  ops/      — rng/ (Threefry), sort/ (abitonic), exec/ (filter)
+  models/   — pipelines (generate_table, sort_pipeline)
+  csrc/     — CUDA kernels
+
+Quick start:
+  from cl_ops_tpu_torch.ops.sort import sort_new
+  out = sort_new("abitonic").sort_with_host_data(np_array)   # on the GPU
+"""
+
+from cl_ops_tpu_torch.core import dtypes, errors, registry  # noqa: F401
+from cl_ops_tpu_torch.utils import bits  # noqa: F401
+
+__version__ = "0.1.0"
+
+__all__ = ["bits", "dtypes", "errors", "registry", "__version__"]

@@ -1,0 +1,303 @@
+"""The fused bitonic sort: host schedule, four CUDA kernels, plain versions.
+
+Counterpart of `cl_ops_tpu/ops/sort/bitonic_kernels.py` (fused branch). The
+data is a tuple of 1-D int32 columns of one power-of-two length; rows order
+by signed-i32 lexicographic comparison of the first `num_keys` columns (all
+when None) and the rest ride as payload.
+
+Schedule (`bitonic_sort_2d`) for n rows, sort block B and merge block M:
+  block_sort   stages K = 2 .. B inside each B-block          1 launch
+  multi_stage  stages K = 2B .. M inside each M-block         1 launch (M > B)
+  per stage K = 2M .. n:
+    pair_cross one step at distance J, for J = K/2 .. M       in device memory
+    block_merge  steps J = M/2 .. 1 inside each M-block       1 launch
+
+Every compare-exchange is in pair form: the two rows swap, all columns
+together, only when strictly out of order for the pair's direction, which is
+ascending iff (global index of the lower partner) & K == 0. So ties never
+duplicate a row, and a kernel and its plain version agree bit for bit, ties
+included. The CUDA kernels live in `csrc/bitonic.cu` and work in place.
+
+Each wrapper (`block_sort_`, `multi_stage_`, `pair_cross_`, `block_merge_`)
+runs the plain PyTorch version on CPU tensors and launches its kernel on
+CUDA tensors, adding one to `launches[<name>]` per launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cl_ops_tpu_torch.core.errors import BadArgsError
+from cl_ops_tpu_torch.utils.bits import is_po2, log2_floor, nlpo2
+from cl_ops_tpu_torch.utils.platform import build_library
+
+MAX_COLS = 8           # csrc/bitonic.cu MAX_COLS
+MAX_LEN = 1 << 30      # indices and stage bits stay inside 32-bit ints
+SMEM_MAX = 227 * 1024  # dynamic shared memory one Hopper block can use
+KERNELS = ("block_sort", "multi_stage", "pair_cross", "block_merge")
+
+# Kernel launches per wrapper since the last reset_launches().
+launches = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+
+
+# --- the CUDA library --------------------------------------------------------
+
+_lib = None
+build_log = ""
+
+
+def load_kernels():
+    """Build (once per source hash) and load csrc/bitonic.cu."""
+    global _lib, build_log
+    if _lib is None:
+        path, build_log = build_library("bitonic")
+        lib = ctypes.CDLL(str(path))
+        ptrs = ctypes.POINTER(ctypes.c_void_p)
+        for name in KERNELS:
+            # (columns, n_cols, num_keys, n, 1 or 2 geometry ints, stream)
+            n_ints = 4 if name == "block_sort" else 5
+            fn = getattr(lib, f"clo_{name}")
+            fn.argtypes = [ptrs] + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _launch(name: str, cols, num_keys: int, *ints) -> None:
+    fn = getattr(load_kernels(), f"clo_{name}")
+    ptrs = (ctypes.c_void_p * len(cols))(*[c.data_ptr() for c in cols])
+    dev = cols[0].device
+    with torch.cuda.device(dev):  # the library launches on the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ptrs, len(cols), num_keys, cols[0].numel(), *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: error {err}")
+    launches[name] += 1
+
+
+def _check(cols, num_keys, *blocks, smem_block=0) -> tuple[int, bool]:
+    """Validate columns (and that `smem_block` rows of them fit one block's
+    shared memory); returns (resolved num_keys, is_cuda)."""
+    if not 1 <= len(cols) <= MAX_COLS:
+        raise BadArgsError(f"1..{MAX_COLS} columns, got {len(cols)}")
+    n = cols[0].numel()
+    dev = cols[0].device
+    for c in cols:
+        if c.dtype != torch.int32 or c.dim() != 1 or not c.is_contiguous():
+            raise BadArgsError("columns must be contiguous 1-D int32")
+        if c.numel() != n or c.device != dev:
+            raise BadArgsError("columns differ in length or device")
+    if not is_po2(n) or n > MAX_LEN:
+        raise BadArgsError(f"length {n} is not a power of two <= 2^30")
+    for b in blocks:
+        if not is_po2(b) or b > n:
+            raise BadArgsError(f"block {b} is not a power of two <= {n}")
+    if len(cols) * smem_block * 4 > SMEM_MAX:
+        raise BadArgsError(f"{len(cols)} columns of {smem_block} rows exceed "
+                           f"{SMEM_MAX} bytes of shared memory")
+    if dev.type not in ("cpu", "cuda"):
+        raise BadArgsError(f"unsupported device {dev}")
+    nk = len(cols) if num_keys is None else num_keys
+    if not 1 <= nk <= len(cols):
+        raise BadArgsError(f"num_keys {num_keys} out of range")
+    return nk, dev.type == "cuda"
+
+
+# --- plain versions ----------------------------------------------------------
+
+def _lex_lt(a, b):
+    """Strict signed lexicographic a < b over equal-length column lists."""
+    lt = a[0] < b[0]
+    eq = a[0] == b[0]
+    for x, y in zip(a[1:], b[1:]):
+        lt = lt | (eq & (x < y))
+        eq = eq & (x == y)
+    return lt
+
+
+def _plain_step(cols, k: int, j: int, num_keys: int) -> None:
+    """One network step (stage k, distance j) over whole columns, in place."""
+    n = cols[0].numel()
+    g = n // (2 * j)
+    views = [c.view(g, 2, j) for c in cols]
+    lo = [v[:, 0] for v in views]
+    hi = [v[:, 1] for v in views]
+    base = torch.arange(g, device=cols[0].device, dtype=torch.int64) * (2 * j)
+    asc = ((base & k) == 0).unsqueeze(1)
+    swap = torch.where(asc, _lex_lt(hi[:num_keys], lo[:num_keys]),
+                       _lex_lt(lo[:num_keys], hi[:num_keys]))
+    for v, l, h in zip(views, lo, hi):
+        nl, nh = torch.where(swap, h, l), torch.where(swap, l, h)
+        v[:, 0] = nl
+        v[:, 1] = nh
+
+
+def _plain_stages(cols, k_first: int, k_last: int, num_keys: int) -> None:
+    k = k_first
+    while k <= k_last:
+        j = k // 2
+        while j >= 1:
+            _plain_step(cols, k, j, num_keys)
+            j //= 2
+        k *= 2
+
+
+def block_sort_plain(cols, block: int, num_keys: int) -> None:
+    """Plain version of block_sort: stages K = 2 .. block."""
+    _plain_stages(cols, 2, block, num_keys)
+
+
+def multi_stage_plain(cols, block: int, merge: int, num_keys: int) -> None:
+    """Plain version of multi_stage: stages K = 2*block .. merge."""
+    _plain_stages(cols, 2 * block, merge, num_keys)
+
+
+def pair_cross_plain(cols, k: int, j: int, num_keys: int) -> None:
+    """Plain version of pair_cross: one step (k, j)."""
+    _plain_step(cols, k, j, num_keys)
+
+
+def block_merge_plain(cols, merge: int, k: int, num_keys: int) -> None:
+    """Plain version of block_merge: steps J = merge/2 .. 1 of stage k."""
+    j = merge // 2
+    while j >= 1:
+        _plain_step(cols, k, j, num_keys)
+        j //= 2
+
+
+# --- wrappers ----------------------------------------------------------------
+
+def block_sort_(cols, block: int, num_keys: int | None = None):
+    """Sort every `block`-row block (top stage by block parity), in place."""
+    nk, cuda = _check(cols, num_keys, block, smem_block=block)
+    if cuda:
+        _launch("block_sort", cols, nk, block)
+    else:
+        block_sort_plain(cols, block, nk)
+    return cols
+
+
+def multi_stage_(cols, block: int, merge: int, num_keys: int | None = None):
+    """Stages 2*block .. merge inside every `merge`-row block, in place."""
+    nk, cuda = _check(cols, num_keys, block, merge, smem_block=merge)
+    if cuda:
+        _launch("multi_stage", cols, nk, block, merge)
+    else:
+        multi_stage_plain(cols, block, merge, nk)
+    return cols
+
+
+def pair_cross_(cols, k: int, j: int, num_keys: int | None = None):
+    """One compare-exchange step at distance j of stage k, in place."""
+    nk, cuda = _check(cols, num_keys, 2 * j)
+    if k and (not is_po2(k) or k < 2 * j):
+        raise BadArgsError(f"stage {k} must be 0 or a power of two >= 2*{j}")
+    if cuda:
+        _launch("pair_cross", cols, nk, k, j)
+    else:
+        pair_cross_plain(cols, k, j, nk)
+    return cols
+
+
+def block_merge_(cols, merge: int, k: int, num_keys: int | None = None):
+    """Steps merge/2 .. 1 of stage k inside every `merge`-row block (k = 0:
+    all ascending), in place."""
+    nk, cuda = _check(cols, num_keys, merge, smem_block=merge)
+    if k and (not is_po2(k) or k < merge):
+        raise BadArgsError(f"stage {k} must be 0 or a power of two >= {merge}")
+    if cuda:
+        _launch("block_merge", cols, nk, merge, k)
+    else:
+        block_merge_plain(cols, merge, k, nk)
+    return cols
+
+
+# --- host schedule -----------------------------------------------------------
+
+def bitonic_sort_2d(cols, *, block_elems: int, merge_elems: int,
+                    num_keys: int | None = None):
+    """Sort power-of-two-length int32 columns ascending, in place.
+
+    Named after its JAX counterpart; the columns here are 1-D. block_elems
+    and merge_elems are clamped to the length (merge >= block). Returns the
+    columns.
+    """
+    n = cols[0].numel()
+    if n <= 1:
+        return cols
+    b = min(block_elems, n)
+    m = max(min(merge_elems, n), b)
+    block_sort_(cols, b, num_keys)
+    if m > b:
+        multi_stage_(cols, b, m, num_keys)
+    for sk in range(log2_floor(m) + 1, log2_floor(n) + 1):
+        k = 1 << sk
+        j = k // 2
+        while j >= m:
+            pair_cross_(cols, k, j, num_keys)
+            j //= 2
+        block_merge_(cols, m, k, num_keys)
+    return cols
+
+
+def bitonic_merge_2d(cols, *, merge_elems: int, num_keys: int | None = None):
+    """Ascending merge of one whole bitonic sequence, in place (stage K = 0:
+    every pair ascending). Used by the distributed sort."""
+    n = cols[0].numel()
+    if n <= 1:
+        return cols
+    m = min(merge_elems, n)
+    j = n // 2
+    while j >= m:
+        pair_cross_(cols, 0, j, num_keys)
+        j //= 2
+    return block_merge_(cols, m, 0, num_keys)
+
+
+def sweeps(n: int, block_elems: int, merge_elems: int) -> dict[str, int]:
+    """Launches of each kernel in bitonic_sort_2d (each one sweep)."""
+    if n <= 1:
+        return dict.fromkeys(KERNELS, 0)
+    b = min(block_elems, n)
+    m = max(min(merge_elems, n), b)
+    stages = log2_floor(n) - log2_floor(m)
+    return {"block_sort": 1, "multi_stage": int(m > b),
+            "pair_cross": stages * (stages + 1) // 2, "block_merge": stages}
+
+
+def fused_traffic_bytes(n_padded: int, n_arrays: int, block_elems: int,
+                        merge_elems: int) -> int:
+    """Device-memory bytes bitonic_sort_2d moves: each launch reads and
+    writes every column once."""
+    per = 2 * n_padded * 4 * n_arrays
+    return per * sum(sweeps(n_padded, block_elems, merge_elems).values())
+
+
+def merge_traffic_bytes(n_padded: int, n_arrays: int,
+                        merge_elems: int) -> int:
+    """Device-memory bytes of bitonic_merge_2d (pair steps + one merge)."""
+    per = 2 * n_padded * 4 * n_arrays
+    levels = log2_floor(max(n_padded // merge_elems, 1))
+    return (levels + 1) * per
+
+
+def pad_and_reshape(cols, pad_values):
+    """Copy 1-D columns into fresh int32 buffers padded to a shared power of
+    two with `pad_values`. Named after its JAX counterpart; nothing is
+    reshaped here. Returns (columns, padded length)."""
+    n = cols[0].numel()
+    padded = nlpo2(n)
+    out = []
+    for c, pv in zip(cols, pad_values):
+        buf = torch.empty(padded, dtype=torch.int32, device=c.device)
+        buf[:n] = c
+        buf[n:] = pv
+        out.append(buf)
+    return tuple(out), padded

@@ -1,0 +1,96 @@
+"""filter_compact and count_where of cl_ops_tpu_torch against cl_ops_tpu's
+(Pallas bitonic compaction in interpret mode). The partition is stable and
+its rank prefix unique, so every output column is bit-identical."""
+
+import numpy as np
+import pytest
+import torch
+
+from cl_ops_tpu_torch import interop
+from cl_ops_tpu_torch.core.errors import BadArgsError, BadDtypeError
+from cl_ops_tpu_torch.ops.exec import filter as tflt
+
+jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
+jflt = pytest.importorskip("cl_ops_tpu.ops.exec.filter")
+
+N = 5000
+
+
+def _data(seed, n=N):
+    rng = np.random.default_rng(seed)
+    return {
+        "u32": rng.integers(0, 2 ** 32, n, dtype=np.uint32),
+        "i64": rng.integers(-2 ** 63, 2 ** 63, n, dtype=np.int64),
+        "f16": rng.standard_normal(n).astype(np.float16),
+        "i8": rng.integers(-128, 128, n, dtype=np.int8),
+        "u16": rng.integers(0, 2 ** 16, n, dtype=np.uint16),
+        "f64": rng.standard_normal(n),
+    }
+
+
+def _run(data, cols, threshold):
+    jout = jflt.filter_compact(
+        jnp.asarray(data), lambda v: v < jnp.uint32(threshold),
+        *[jnp.asarray(c) for c in cols], use_pallas=True)
+    tout = tflt.filter_compact(
+        interop.to_torch(data, "cpu"),
+        lambda v: interop.widen_u32(v) < threshold,
+        *[interop.to_torch(c, "cpu") for c in cols])
+    return [np.asarray(a) for a in jout], tout
+
+
+def _check(jout, tout, data, cols, threshold):
+    mask = data < threshold
+    assert int(tout[0]) == int(jout[0]) == int(mask.sum())
+    for w, g, src in zip(jout[1:], tout[1:], (data, *cols)):
+        g = interop.to_numpy(g)
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+        np.testing.assert_array_equal(g[:int(mask.sum())], src[mask])
+
+
+@pytest.mark.parametrize("threshold", [429496730, 2 ** 31, 0, 2 ** 32 - 1])
+@pytest.mark.parametrize("payload", [("u32",), ("i64", "f16"),
+                                     ("i8", "u16", "f64")])
+def test_filter_compact_matches_reference(threshold, payload):
+    d = _data(1)
+    cols = [d[k] for k in payload]
+    jout, tout = _run(d["u32"], cols, threshold)
+    _check(jout, tout, d["u32"], cols, threshold)
+
+
+def test_two_column_rank_path(monkeypatch):
+    monkeypatch.setattr(jflt, "_PACK_MAX", 1024)
+    monkeypatch.setattr(tflt, "_PACK_MAX", 1024)
+    d = _data(2, 3000)
+    cols = [d["u32"][::-1].copy(), d["i64"]]
+    jout, tout = _run(d["u32"], cols, 2 ** 30)
+    _check(jout, tout, d["u32"], cols, 2 ** 30)
+
+
+def test_filter_float_data():
+    x = np.random.default_rng(3).standard_normal(N).astype(np.float32)
+    jout = jflt.filter_compact(jnp.asarray(x), lambda v: v > 0.5,
+                               use_pallas=True)
+    tout = tflt.filter_compact(torch.from_numpy(x), lambda v: v > 0.5)
+    assert int(jout[0]) == int(tout[0])
+    assert np.asarray(jout[1]).tobytes() == tout[1].numpy().tobytes()
+
+
+@pytest.mark.parametrize("threshold", [0, 1000, 2 ** 32 - 1])
+def test_count_where_matches_reference(threshold):
+    x = _data(4)["u32"] % 2000
+    want = jflt.count_where(jnp.asarray(x), lambda v: v < jnp.uint32(threshold))
+    got = tflt.count_where(interop.to_torch(x, "cpu"),
+                           lambda v: interop.widen_u32(v) < threshold)
+    assert int(got) == int(want) == int((x < threshold).sum())
+
+
+def test_filter_rejects_bad_columns():
+    x = torch.arange(16, dtype=torch.int32)
+    with pytest.raises(BadDtypeError):
+        tflt.filter_compact(x, lambda v: v < 3, torch.zeros(16,
+                                                           dtype=torch.bool))
+    with pytest.raises(BadArgsError):
+        tflt.filter_compact(x, lambda v: v < 3, torch.zeros(15,
+                                                           dtype=torch.int32))
