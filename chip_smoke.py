@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of cl_ops_tpu_torch on one CUDA card.
 
-Builds the CUDA kernels from `cl_ops_tpu_torch/csrc/`, holds each kernel
-against its plain PyTorch version at the main path's shapes, drives the main
-path (abitonic sort of 16M u32 keys, KV sort of 16M u64 keys with u32
-values, sort_pipeline at 16M, filter_compact over 64M rows at 10%
-selectivity), checks every result, and times the kernels, the sort and the
-filter with CUDA events. Run from the repository root:
+Builds the CUDA kernels from `cl_ops_tpu_torch/csrc/` (one nvcc per source,
+started together), holds each kernel against its plain PyTorch version at
+the main path's shapes, drives the main path (abitonic sort of 16M u32
+keys, KV sort of 16M u64 keys with u32 values, sort_pipeline at 16M,
+filter_compact over 64M rows at 10% selectivity, GROUP BY of 256M rows into
+1M groups, analytics_query over 64M rows, q1_query over 16M rows into 64K
+groups, and a GROUP BY of 16M int64 measures), checks every result against
+torch or numpy, and times the kernels and the phases with CUDA events. Run
+from the repository root:
 
     python3 chip_smoke.py
 
@@ -23,6 +26,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # NVIDIA H100 SXM data sheet: device memory rate, and the non-tensor-core
 # 32-bit rate (the table lists float32; int32 compares and selects are taken
@@ -33,6 +37,11 @@ SEED = 0
 SORT_N = 1 << 24
 FILTER_N = 1 << 26
 FILTER_THRESHOLD = 429496730  # u32 values below it: 10% of the range
+GROUPBY_N = 1 << 28          # BASELINE config 4: 256M rows, 1M groups
+GROUPBY_G = 1 << 20
+ANALYTICS_N = 1 << 26        # BASELINE configs 3 + 4 chained
+Q1_N, Q1_G = 1 << 24, 1 << 16  # bench_all.py q1_16Mx64K
+SCAN_N = 1 << 24
 
 
 def phase(name):
@@ -67,6 +76,49 @@ def cuda_ms(fn, reps, before=None):
     return statistics.median(times)
 
 
+KERNEL_GROUPS = (("bitonic", ("block_sort", "multi_stage", "pair_cross",
+                              "block_merge")),
+                 ("scan", ("scan_tiles",)))
+
+
+def device_breakdown(cell, fn):
+    """Trace one fn() with torch.profiler and print the device time by
+    kernel group (the port's bitonic and scan kernels, torch's own kernels,
+    copies and fills), the call's time on the host clock and the device's
+    idle share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    groups, top = {}, {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in name for k in keys)), None)
+        if group is None:
+            group = "copies and fills" if any(
+                k in name.lower() for k in ("memcpy", "memset", "fill")) \
+                else "torch ops"
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+        top[name[:60]] = top.get(name[:60], 0.0) + us / 1e3
+    busy = sum(groups.values())
+    print(json.dumps({
+        "profile": cell, "wall_ms": wall_ms, "device_ms": busy,
+        "idle_share": 1 - busy / wall_ms if wall_ms else None,
+        "device_ms_by_group": groups,
+        "top_kernels_ms": dict(sorted(top.items(),
+                                      key=lambda kv: -kv[1])[:8])}))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -76,7 +128,12 @@ def main() -> int:
 
     from cl_ops_tpu_torch import interop
     from cl_ops_tpu_torch.models import pipeline
-    from cl_ops_tpu_torch.ops.exec import filter_compact, psort
+    from cl_ops_tpu_torch.ops.exec import (filter_compact,
+                                           group_aggregate_cols,
+                                           group_aggregate_sorted, psort)
+    from cl_ops_tpu_torch.ops.rng import threefry
+    from cl_ops_tpu_torch.ops.scan import kernels as sk
+    from cl_ops_tpu_torch.ops.scan import segmented as seg
     from cl_ops_tpu_torch.ops.sort import bitonic as bt
     from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
     from cl_ops_tpu_torch.ops.sort import keys as keymod
@@ -94,9 +151,11 @@ def main() -> int:
         print("torch", torch.__version__, "cuda", torch.version.cuda,
               "device", torch.cuda.get_device_name(0))
         t = time.perf_counter()
-        bk.load_kernels()
+        with ThreadPoolExecutor(2) as pool:  # one nvcc per source
+            for f in [pool.submit(m.load_kernels) for m in (bk, sk)]:
+                f.result()
         print(f"kernel build+load: {time.perf_counter() - t:.3f} s")
-        for line in bk.build_log.splitlines():
+        for line in (bk.build_log + sk.build_log).splitlines():
             if "registers" in line or "Compiling entry" in line:
                 print("ptxas:", line.strip())
 
@@ -178,16 +237,101 @@ def main() -> int:
         for r in u32_recs + kv_recs:
             print("kernel", json.dumps(r))
 
-    main_launches = dict.fromkeys(bk.KERNELS, 0)
+    # -- the scan kernels against their plain versions -----------------------
+    def scan_record(name, n, kern, plain, library, nbytes, shape, tol=None):
+        """Run kernel and plain version on the same inputs, compare (exact,
+        or within tol(got, want) elementwise), time both and the library
+        call; returns the kernel's record."""
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if got.dtype.is_floating_point:
+            nan = got.isnan()
+            if not torch.equal(nan, want.isnan()):
+                raise AssertionError(f"{name} {shape}: NaNs differ")
+            diff = torch.where(nan, 0.0, (got - want).abs())
+            err = float(diff.max())
+            ok = bool((diff <= tol(got, want)).all()) if tol else err == 0
+        else:
+            ok, err = torch.equal(got, want), 0
+        if not ok:
+            raise AssertionError(f"{name} {shape}: kernel differs from its "
+                                 f"plain version (max abs err {err})")
+        del got, want
+        bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+        ops_ms = n / PEAK_OPS_S * 1e3  # one add or compare per element
+        return {"name": name, "route": "cuda",
+                "source": "cl_ops_tpu_torch/csrc/scan.cu",
+                "replaces": REPLACES[name], "launches": 0,
+                "max_abs_err": err, "ms": cuda_ms(kern, 7),
+                "plain_ms": cuda_ms(plain, 3),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": cuda_ms(library, 7) if library else None,
+                "shape": shape}
+
+    with phase("scan kernels vs plain"):
+        scan_recs = {}
+        for n in (GROUPBY_N, SCAN_N):
+            xi = interop.to_torch(rng.integers(-2 ** 31, 2 ** 31, n,
+                                               dtype=np.int32), dev)
+            scan_recs[f"scan_carry {n}"] = scan_record(
+                "scan_carry", n, lambda: sk.scan_carry(xi),
+                lambda: sk.scan_carry_plain(xi, False),
+                lambda: torch.cumsum(xi, 0, dtype=torch.int32), 8 * n,
+                f"n={n} int32 inclusive")
+            del xi
+        x64 = interop.to_torch(rng.integers(-2 ** 63, 2 ** 63, SCAN_N,
+                                            dtype=np.int64), dev)
+        scan_recs["scan_carry_wide"] = scan_record(
+            "scan_carry_wide", SCAN_N, lambda: sk.scan_carry(x64),
+            lambda: sk.scan_carry_plain(x64, False),
+            lambda: torch.cumsum(x64, 0), 16 * SCAN_N,
+            f"n={SCAN_N} int64 inclusive")
+        del x64
+        # segment density of q1: about 64K runs in 16M rows
+        flags = interop.to_torch(
+            (rng.random(SCAN_N) < 1 / 256).astype(np.int32), dev)
+        vals = {"int32": interop.to_torch(rng.integers(
+                    -2 ** 31, 2 ** 31, SCAN_N, dtype=np.int32), dev),
+                "float32": interop.to_torch(rng.uniform(
+                    -1, 1, SCAN_N).astype(np.float32), dev)}
+
+        def f32_sum_tol(got, want, v=vals["float32"]):
+            # float32 sums in two orders: 1e-5 (about 84 ulps) of the
+            # running sum of |x| in the segment, plus 1e-6 near zero
+            return 1e-5 * seg.seg_scan_carry_plain(v.abs(), flags, "add",
+                                                   False) + 1e-6
+        for dt, v in vals.items():
+            for op in seg.OPS:
+                scan_recs[f"seg_scan_carry {op} {dt}"] = scan_record(
+                    "seg_scan_carry", SCAN_N,
+                    lambda v=v, op=op: seg.seg_scan_carry(v, flags, op),
+                    lambda v=v, op=op: seg.seg_scan_carry_plain(
+                        v, flags, op, False), None, 12 * SCAN_N,
+                    f"n={SCAN_N} {dt} {op} runs~{SCAN_N // 256}",
+                    f32_sum_tol if (dt, op) == ("float32", "add") else None)
+        del vals, flags
+        for r in scan_recs.values():
+            print("kernel", json.dumps(r))
+
+    all_kernels = bk.KERNELS + sk.KERNELS + seg.KERNELS
+    counters = (bk.launches, sk.launches, seg.launches)
+    main_launches = dict.fromkeys(all_kernels, 0)
+
+    def reset():
+        for m in (bk, sk, seg):
+            m.reset_launches()
 
     def count(name):
-        for k in bk.KERNELS:
-            main_launches[k] += bk.launches[k]
-        print(f"launches in {name}:", json.dumps(bk.launches))
+        now = {k: v for c in counters for k, v in c.items()}
+        for k in all_kernels:
+            main_launches[k] += now[k]
+        print(f"launches in {name}:", json.dumps(now))
+        return now
 
     sorter = sort_new("abitonic")
     with phase("sort 16M u32"):
-        bk.reset_launches()
+        reset()
         out = sorter.sort_with_device_data(keys32)
         torch.cuda.synchronize()
         count("sort")
@@ -212,7 +356,7 @@ def main() -> int:
         host_keys = interop.to_numpy(keys64)
         idx = torch.arange(SORT_N, dtype=torch.int32, device=dev).view(
             torch.uint32)
-        bk.reset_launches()
+        reset()
         ok_keys, ok_vals = kv_sorter.sort_with_device_data(keys64, idx)
         torch.cuda.synchronize()
         count("kv sort")
@@ -233,8 +377,8 @@ def main() -> int:
                           "bound_ms": kv_bytes / PEAK_BYTES_S * 1e3}))
 
     with phase("sort_pipeline 16M"):
-        bk.reset_launches()
-        sk, ok = pipeline.sort_pipeline(SORT_N, seed=SEED, device="cuda")
+        reset()
+        sp_keys, ok = pipeline.sort_pipeline(SORT_N, seed=SEED, device="cuda")
         torch.cuda.synchronize()
         count("sort_pipeline")
         if not bool(ok):
@@ -244,7 +388,7 @@ def main() -> int:
         if not torch.equal(gk[:1 << 16].cpu().view(torch.int32),
                            ck.view(torch.int32)):
             raise AssertionError("threefry on the card differs from the CPU")
-        if not torch.equal(keymod.to_limbs(sk)[0],
+        if not torch.equal(keymod.to_limbs(sp_keys)[0],
                            torch.sort(keymod.to_limbs(gk)[0])[0]):
             raise AssertionError("sort_pipeline keys differ from torch.sort")
 
@@ -256,7 +400,7 @@ def main() -> int:
 
         def pred(v):
             return interop.widen_u32(v) < FILTER_THRESHOLD
-        bk.reset_launches()
+        reset()
         cnt, f_data, f_pay = filter_compact(d_data, pred, d_pay)
         torch.cuda.synchronize()
         count("filter")
@@ -278,13 +422,175 @@ def main() -> int:
                           "sort_model_bytes": f_bytes,
                           "bound_ms": f_bytes / PEAK_BYTES_S * 1e3}))
 
+        del d_data, d_pay, f_data, f_pay
+
+    def check(name, ok):
+        if not ok:
+            raise AssertionError(name)
+
+    with phase("group by 256M x 1M"):
+        h_keys = np.random.RandomState(4).randint(
+            0, GROUPBY_G, GROUPBY_N).astype(np.uint32)
+        h_vals = np.random.RandomState(5).randint(
+            0, 100, GROUPBY_N).astype(np.int32)
+        d_keys = interop.to_torch(h_keys, dev)
+        d_vals = interop.to_torch(h_vals, dev)
+
+        def groupby():
+            return group_aggregate_sorted(d_keys, d_vals,
+                                          num_groups=GROUPBY_G, agg="sum")
+        reset()
+        gk, tbl, cnt = groupby()
+        torch.cuda.synchronize()
+        gb_launches = count("group by")
+        present = np.nonzero(np.bincount(h_keys, minlength=GROUPBY_G))[0]
+        sums = np.bincount(h_keys, weights=h_vals,
+                           minlength=GROUPBY_G)[present]  # exact: < 2^53
+        c = int(cnt)
+        check("group by count", c == len(present))
+        check("group by keys", np.array_equal(
+            interop.to_numpy(gk)[:c], present))
+        check("group by sums", np.array_equal(
+            interop.to_numpy(tbl)[:c].astype(np.float64), sums))
+        check("group by padding", (interop.to_numpy(tbl)[c:] == 0).all())
+        del gk, tbl, h_keys, h_vals
+        gb_ms = cuda_ms(groupby, 3)
+        device_breakdown("group by 256M x 1M", groupby)
+        sort_bytes = psort.sort_traffic_bytes(GROUPBY_N, 2)
+        glue = {k: v * GROUPBY_N for k, v in GROUPBY_BYTES_PER_ROW.items()}
+        gb_bytes = sort_bytes + sum(glue.values())
+        print(json.dumps({
+            "groupby": "256M u32 keys x int32 values, 1M groups, sum",
+            "n": GROUPBY_N, "groups": c, "ms": gb_ms,
+            "mrows_s": GROUPBY_N / gb_ms / 1e3,
+            "sort_model_bytes": sort_bytes, "boundary_bytes": glue,
+            "model_bytes": gb_bytes,
+            "bound_ms": gb_bytes / PEAK_BYTES_S * 1e3,
+            "launches": gb_launches}))
+        del d_keys, d_vals
+
+    with phase("analytics_query 64M, 10%, 1M groups"):
+        def analytics():
+            return pipeline.analytics_query(
+                ANALYTICS_N, num_groups=GROUPBY_G, seed=SEED, threshold=102,
+                device="cuda")
+        reset()
+        a_cnt, a_table = analytics()
+        torch.cuda.synchronize()
+        a_launches = count("analytics_query")
+        hk, hv = (interop.to_numpy(t) for t in
+                  pipeline.generate_table(ANALYTICS_N, SEED, device="cuda"))
+        m = hv < 102
+        check("analytics count", int(a_cnt) == int(m.sum()))
+        want = np.bincount(hk[m] % GROUPBY_G, weights=hv[m],
+                           minlength=GROUPBY_G)
+        check("analytics table", np.array_equal(
+            interop.to_numpy(a_table).astype(np.float64), want))
+        kept = int(m.sum())
+        del hk, hv, m, a_table
+        a_ms = cuda_ms(analytics, 3)
+        device_breakdown("analytics_query 64M", analytics)
+        # filter sort (rank, value, key), prefix sort (packed key, value),
+        # the dense group ends' one-column sort, and the value scan
+        a_bytes = (psort.sort_traffic_bytes(ANALYTICS_N, 3)
+                   + psort.sort_traffic_bytes(ANALYTICS_N, 2)
+                   + psort.sort_traffic_bytes(ANALYTICS_N, 1)
+                   + sk.scan_traffic_bytes(ANALYTICS_N, torch.uint32))
+        print(json.dumps({
+            "analytics_query": "64M rows, value < 102 of 1024, 1M groups",
+            "n": ANALYTICS_N, "kept": kept, "ms": a_ms,
+            "mrows_s": ANALYTICS_N / a_ms / 1e3, "model_bytes": a_bytes,
+            "bound_ms": a_bytes / PEAK_BYTES_S * 1e3,
+            "launches": a_launches}))
+
+    with phase("q1 16M x 64K"):
+        def q1():
+            return pipeline.q1_query(Q1_N, num_groups=Q1_G, seed=SEED,
+                                     device="cuda")
+        reset()
+        q_cnt, q_gk, q_tabs, q_gcnt = q1()
+        torch.cuda.synchronize()
+        q_launches = count("q1")
+        ids = torch.arange(Q1_N, dtype=torch.int32, device=dev)
+        keys, qty, price = (
+            (interop.widen_u32(threefry.random_bits(SEED, ids, c)) % mod)
+            .cpu().numpy() for c, mod in ((0, Q1_G), (1, 1024), (2, 10000)))
+        m = qty < 768
+        k, q, p = keys[m], qty[m], price[m]
+        uniq = np.unique(k)
+        g = len(uniq)
+        cnt = np.bincount(k, minlength=Q1_G)[uniq]
+        mn = np.full(Q1_G, 2 ** 31 - 1, np.int64)
+        mx = np.full(Q1_G, -2 ** 31, np.int64)
+        np.minimum.at(mn, k, q)
+        np.maximum.at(mx, k, p)
+        sq = np.bincount(k, weights=q, minlength=Q1_G)[uniq]
+        sp = np.bincount(k, weights=p, minlength=Q1_G)[uniq]
+        tabs = [interop.to_numpy(t)[:g] for t in q_tabs]
+        check("q1 counts", int(q_cnt) == int(m.sum()) and int(q_gcnt) == g)
+        check("q1 keys", np.array_equal(interop.to_numpy(q_gk)[:g], uniq))
+        for name, got, want in (("sum qty", tabs[0], sq),
+                                ("sum price", tabs[1], sp),
+                                ("min qty", tabs[2], mn[uniq]),
+                                ("max price", tabs[3], mx[uniq]),
+                                ("count", tabs[4], cnt)):
+            check(f"q1 {name}", np.array_equal(got, want))
+        mean32 = sp.astype(np.float32) / cnt.astype(np.float32)
+        check("q1 mean", np.array_equal(tabs[5], mean32) and bool(
+            (np.abs(tabs[5] - sp / cnt) <= 2 ** -23 * sp / cnt).all()))
+        del keys, qty, price, ids, q_gk, q_tabs
+        q_ms = cuda_ms(q1, 3)
+        device_breakdown("q1 16M x 64K", q1)
+        # the (packed key, qty, price) sort, five scans, two segmented scans
+        q_bytes = (psort.sort_traffic_bytes(Q1_N, 3)
+                   + 5 * sk.scan_traffic_bytes(Q1_N, torch.int32)
+                   + 2 * 12 * Q1_N)
+        print(json.dumps({
+            "q1": "16M rows, qty < 768 of 1024, 64K groups, 6 aggregates",
+            "n": Q1_N, "groups": g, "ms": q_ms,
+            "mrows_s": Q1_N / q_ms / 1e3, "model_bytes": q_bytes,
+            "bound_ms": q_bytes / PEAK_BYTES_S * 1e3,
+            "launches": q_launches}))
+
+    with phase("group by 16M int64 measures"):
+        r64 = np.random.default_rng(SEED + 5)
+        hk = r64.integers(0, Q1_G, SCAN_N).astype(np.int32)
+        hv = r64.integers(-2 ** 63, 2 ** 63, SCAN_N, dtype=np.int64)
+        dk, dv = interop.to_torch(hk, dev), interop.to_torch(hv, dev)
+
+        def wide():
+            return group_aggregate_cols(dk, (dv, dv), ("sum", "count"),
+                                        num_groups=Q1_G)
+        reset()
+        w_gk, (w_sum, w_cnt), w_g = wide()
+        torch.cuda.synchronize()
+        w_launches = count("int64 measures")
+        uniq = np.unique(hk)
+        g = len(uniq)
+        sums = np.zeros(Q1_G, np.int64)
+        np.add.at(sums, hk, hv)  # wraps mod 2^64, as the port's sums
+        check("int64 count", int(w_g) == g)
+        check("int64 keys", np.array_equal(interop.to_numpy(w_gk)[:g], uniq))
+        check("int64 sums", np.array_equal(interop.to_numpy(w_sum)[:g],
+                                           sums[uniq]))
+        check("int64 counts", np.array_equal(
+            interop.to_numpy(w_cnt)[:g], np.bincount(hk)[uniq]))
+        w_ms = cuda_ms(wide, 3)
+        device_breakdown("group by 16M int64 measures", wide)
+        print(json.dumps({"int64_measures": "16M rows, 64K groups, sum+count",
+                          "n": SCAN_N, "groups": g, "ms": w_ms,
+                          "launches": w_launches}))
+
     for name, n in main_launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
-    for r in u32_recs:
+    summary = u32_recs + [scan_recs[f"scan_carry {GROUPBY_N}"],
+                          scan_recs["scan_carry_wide"],
+                          scan_recs["seg_scan_carry max int32"]]
+    for r in summary:
         r["launches"] = main_launches[r["name"]]
-    print(json.dumps({"kernels": u32_recs}))
+    print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -297,6 +603,24 @@ REPLACES = {
     "multi_stage": "cl_ops_tpu/ops/sort/bitonic_kernels.py:601",
     "pair_cross": "cl_ops_tpu/ops/sort/bitonic_kernels.py:472",
     "block_merge": "cl_ops_tpu/ops/sort/bitonic_kernels.py:271",
+    "scan_carry": "cl_ops_tpu/ops/scan/kernels.py:182",
+    "scan_carry_wide": "cl_ops_tpu/ops/scan/kernels.py:208",
+    "seg_scan_carry": "cl_ops_tpu/ops/scan/segmented.py:111",
+}
+
+# Device-memory bytes per row of the GROUP BY cell outside the sort, counted
+# from ops/exec/aggregate.py for a sum over u32 keys and int32 values (sparse
+# group ends). The searchsorted over the end ranks (num_groups binary
+# searches) is not counted.
+GROUPBY_BYTES_PER_ROW = {
+    "key limbs to and from the sort": 16,
+    "positions and validity": 5,
+    "is_new (compare, concat, and)": 14,
+    "count (sum of is_new)": 1,
+    "is_end (concats, not, or, and)": 12,
+    "is_end to int32": 5,
+    "scan_carry of the end flags": 8,
+    "scan_carry of the values": 8,
 }
 
 if __name__ == "__main__":

@@ -1,0 +1,372 @@
+// Single-pass prefix scans for Hopper (sm_90a): the plain integer sum
+// (scan_carry, mod 2^32 or mod 2^64) and the segmented add/min/max scan
+// (seg_scan_carry). Built with nvcc into a shared library with a plain C
+// interface and loaded with ctypes (cl_ops_tpu_torch/ops/scan/kernels.py and
+// segmented.py, which also hold each kernel's plain PyTorch version).
+//
+// Replaces cl_ops_tpu/ops/scan/kernels.py _scan_carry_kernel (32-bit sums),
+// _wide_scan_carry_kernel (64-bit sums) and cl_ops_tpu/ops/scan/segmented.py
+// _seg_carry_kernel. Those carried a running total from one grid step to the
+// next, which works only because a TPU core runs its grid in order. Here
+// blocks run in any order, so the carry becomes a decoupled look-back:
+//
+//   * Each block takes its tile index from an atomic ticket, not from
+//     blockIdx, so every tile before it has already started and a block that
+//     waits on a predecessor can never wait on one that is not running.
+//   * A tile scans its TILE elements in registers (warp shuffles, then one
+//     warp over the per-warp totals), publishes its aggregate (flag AGG),
+//     looks back over its predecessors 32 at a time with warp 0, and then
+//     publishes its inclusive prefix (flag PREFIX). A value is written before
+//     its flag with a __threadfence() between them, and read after its flag
+//     with a __threadfence() between them.
+//   * Both scans are scans of (value, flag) pairs under the operator
+//       (v1, f1) (x) (v2, f2) = (f2 ? v2 : v1 (+) v2,  f1 | f2),
+//     which is associative. The plain sum has no flags; a PREFIX status
+//     enters the look-back as a pair with the flag set, since it already
+//     holds everything before it, and so ends the look-back. In the
+//     segmented scan a flag inside a window of predecessors ends it too.
+//
+// Bound: each input element is read once and each output written once:
+// 8n bytes for the 32-bit sum, 16n for the 64-bit sum, and 12n for the
+// segmented scan of 4-byte values with int32 flags. The status words add
+// 24 bytes per 4096-element tile and are zeroed by the caller. Loads and
+// stores are warp-striped (lane j of a warp touches element base + 32k + j),
+// so every access of a warp is one contiguous run whatever the alignment.
+//
+// Integer sums are taken in uint32_t/uint64_t, where wrapping is defined.
+// f32 min/max propagate NaN, as torch.minimum/maximum do; +0 and -0 compare
+// equal. Each entry point launches on the stream it is given, allocates
+// nothing and returns cudaGetLastError() (0 on success).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define THREADS 512
+#define WARPS (THREADS / 32)
+#define ITEMS 8
+#define TILE (THREADS * ITEMS)
+#define WARP_ELEMS (32 * ITEMS)
+#define FULL 0xFFFFFFFFu
+
+enum { ST_NONE = 0, ST_AGG = 1, ST_PREFIX = 2 };
+
+template <class V>
+struct Status {
+  unsigned* ticket;
+  unsigned* flag;   // per tile: ST_NONE, ST_AGG or ST_PREFIX
+  unsigned* agg_f;  // per tile: any segment flag in the tile
+  V* agg_v;         // per tile: value since the tile's last flag
+  V* pre_v;         // per tile: inclusive prefix through the tile's end
+};
+
+// Byte layout of the status buffer: ticket, flag[], agg_f[], agg_v[], pre_v[].
+static long long n_tiles_of(long long n) { return (n + TILE - 1) / TILE; }
+
+static long long status_bytes(long long n, int value_bytes) {
+  long long t = n_tiles_of(n);
+  long long off = 16 + 8 * t;  // ticket (padded), flag[], agg_f[]
+  off = (off + 15) & ~15LL;
+  return off + 2LL * value_bytes * t;
+}
+
+template <class V>
+static Status<V> make_status(void* base, long long n) {
+  long long t = n_tiles_of(n);
+  char* p = static_cast<char*>(base);
+  Status<V> s;
+  s.ticket = reinterpret_cast<unsigned*>(p);
+  s.flag = reinterpret_cast<unsigned*>(p + 16);
+  s.agg_f = s.flag + t;
+  long long off = ((16 + 8 * t) + 15) & ~15LL;
+  s.agg_v = reinterpret_cast<V*>(p + off);
+  s.pre_v = s.agg_v + t;
+  return s;
+}
+
+template <class T>
+__device__ __forceinline__ T load_vol(const T* p) {
+  return *reinterpret_cast<const volatile T*>(p);
+}
+
+template <class T>
+__device__ __forceinline__ void store_vol(T* p, T v) {
+  *reinterpret_cast<volatile T*>(p) = v;
+}
+
+// --- operators ---------------------------------------------------------------
+
+__device__ __forceinline__ int32_t v_min(int32_t a, int32_t b) {
+  return b < a ? b : a;
+}
+__device__ __forceinline__ int32_t v_max(int32_t a, int32_t b) {
+  return b > a ? b : a;
+}
+__device__ __forceinline__ float v_min(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return b < a ? b : a;
+}
+__device__ __forceinline__ float v_max(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return b > a ? b : a;
+}
+
+template <class V> struct Lim;
+template <> struct Lim<int32_t> {
+  static __device__ int32_t lo() { return INT32_MIN; }
+  static __device__ int32_t hi() { return INT32_MAX; }
+};
+template <> struct Lim<float> {
+  static __device__ float lo() { return __int_as_float(0xff800000); }
+  static __device__ float hi() { return __int_as_float(0x7f800000); }
+};
+
+struct OpAdd {
+  static constexpr bool is_add = true;
+  template <class V> static __device__ V id() { return V(0); }
+  template <class V> static __device__ V f(V a, V b) { return a + b; }
+};
+struct OpMin {
+  static constexpr bool is_add = false;
+  template <class V> static __device__ V id() { return Lim<V>::hi(); }
+  template <class V> static __device__ V f(V a, V b) { return v_min(a, b); }
+};
+struct OpMax {
+  static constexpr bool is_add = false;
+  template <class V> static __device__ V id() { return Lim<V>::lo(); }
+  template <class V> static __device__ V f(V a, V b) { return v_max(a, b); }
+};
+
+template <class V>
+struct Pair {
+  V v;
+  unsigned f;
+};
+
+// a comes before b.
+template <class Op, class V>
+__device__ __forceinline__ Pair<V> comb(Pair<V> a, Pair<V> b) {
+  Pair<V> r;
+  r.v = b.f ? b.v : Op::f(a.v, b.v);
+  r.f = a.f | b.f;
+  return r;
+}
+
+template <class Op, class V>
+__device__ __forceinline__ Pair<V> ident(unsigned f = 0u) {
+  Pair<V> r;
+  r.v = Op::template id<V>();
+  r.f = f;
+  return r;
+}
+
+// --- look-back ---------------------------------------------------------------
+
+// Run by all 32 lanes of warp 0. Publishes the tile's aggregate, combines
+// its predecessors' statuses, publishes its inclusive prefix, and returns
+// the exclusive prefix of the tile (the combine of every element before it).
+template <class Op, class V>
+__device__ Pair<V> look_back(const Status<V>& st, long long tile, Pair<V> agg,
+                             int lane) {
+  if (tile == 0) {
+    if (lane == 0) {
+      store_vol(&st.pre_v[0], agg.v);
+      __threadfence();
+      store_vol(&st.flag[0], (unsigned)ST_PREFIX);
+    }
+    return ident<Op, V>();
+  }
+  if (lane == 0) {
+    store_vol(&st.agg_v[tile], agg.v);
+    store_vol(&st.agg_f[tile], agg.f);
+    __threadfence();
+    store_vol(&st.flag[tile], (unsigned)ST_AGG);
+  }
+  Pair<V> acc = ident<Op, V>();  // combine of tiles (w, tile), the later part
+  long long w = tile - 1;
+  while (true) {
+    long long j = w - lane;  // lane 0 is the nearest predecessor
+    Pair<V> e = ident<Op, V>(1u);  // before tile 0: nothing, and stop
+    if (j >= 0) {
+      unsigned s;
+      do {
+        s = load_vol(&st.flag[j]);
+      } while (s == ST_NONE);
+      __threadfence();
+      if (s == ST_PREFIX) {
+        e.v = load_vol(&st.pre_v[j]);
+        e.f = 1u;
+      } else {
+        e.v = load_vol(&st.agg_v[j]);
+        e.f = load_vol(&st.agg_f[j]);
+      }
+    }
+    // Ordered reduction over the window: lane + d is earlier than lane.
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      Pair<V> o;
+      o.v = __shfl_down_sync(FULL, e.v, d);
+      o.f = __shfl_down_sync(FULL, e.f, d);
+      if (lane + d < 32) e = comb<Op>(o, e);
+    }
+    Pair<V> win;
+    win.v = __shfl_sync(FULL, e.v, 0);
+    win.f = __shfl_sync(FULL, e.f, 0);
+    acc = comb<Op>(win, acc);
+    if (acc.f) break;  // a prefix or a segment start: nothing earlier counts
+    w -= 32;
+  }
+  if (lane == 0) {
+    store_vol(&st.pre_v[tile], comb<Op>(acc, agg).v);
+    __threadfence();
+    store_vol(&st.flag[tile], (unsigned)ST_PREFIX);
+  }
+  return acc;
+}
+
+// --- the tile kernel -----------------------------------------------------------
+
+template <class V, class Op, bool SEG>
+__global__ void __launch_bounds__(THREADS)
+    scan_tiles(const V* __restrict__ x, const int32_t* __restrict__ flags,
+               V* __restrict__ out, long long n, int exclusive, Status<V> st) {
+  __shared__ unsigned s_tile;
+  __shared__ V s_wv[WARPS];
+  __shared__ unsigned s_wf[WARPS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = atomicAdd(st.ticket, 1u);
+  __syncthreads();
+  const long long base = (long long)s_tile * TILE + (long long)warp * WARP_ELEMS;
+
+  V xv[ITEMS];
+  Pair<V> p[ITEMS];
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    long long i = base + k * 32 + lane;
+    bool in = i < n;
+    xv[k] = in ? x[i] : Op::template id<V>();
+    p[k].v = xv[k];
+    p[k].f = (SEG && in) ? (flags[i] != 0) : 0u;
+  }
+
+  // Inclusive scan of the warp's WARP_ELEMS elements, in index order.
+  Pair<V> run = ident<Op, V>();
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    Pair<V> q = p[k];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      Pair<V> o;
+      o.v = __shfl_up_sync(FULL, q.v, d);
+      o.f = SEG ? __shfl_up_sync(FULL, q.f, d) : 0u;
+      if (lane >= d) q = comb<Op>(o, q);
+    }
+    q = comb<Op>(run, q);
+    p[k] = q;
+    run.v = __shfl_sync(FULL, q.v, 31);
+    run.f = SEG ? __shfl_sync(FULL, q.f, 31) : 0u;
+  }
+  if (lane == 0) {
+    s_wv[warp] = run.v;
+    s_wf[warp] = run.f;
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    Pair<V> w = ident<Op, V>();
+    if (lane < WARPS) {
+      w.v = s_wv[lane];
+      w.f = s_wf[lane];
+    }
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      Pair<V> o;
+      o.v = __shfl_up_sync(FULL, w.v, d);
+      o.f = __shfl_up_sync(FULL, w.f, d);
+      if (lane >= d) w = comb<Op>(o, w);
+    }
+    Pair<V> agg;
+    agg.v = __shfl_sync(FULL, w.v, WARPS - 1);
+    agg.f = __shfl_sync(FULL, w.f, WARPS - 1);
+    Pair<V> ex;
+    ex.v = __shfl_up_sync(FULL, w.v, 1);
+    ex.f = __shfl_up_sync(FULL, w.f, 1);
+    if (lane == 0) ex = ident<Op, V>();
+    Pair<V> pre = look_back<Op>(st, (long long)s_tile, agg, lane);
+    if (lane < WARPS) {
+      Pair<V> c = comb<Op>(pre, ex);
+      s_wv[lane] = c.v;
+      s_wf[lane] = c.f;
+    }
+  }
+  __syncthreads();
+
+  Pair<V> wp;
+  wp.v = s_wv[warp];
+  wp.f = s_wf[warp];
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    long long i = base + k * 32 + lane;
+    if (i < n) {
+      V r = comb<Op>(wp, p[k]).v;
+      if (Op::is_add && exclusive) r = r - xv[k];
+      out[i] = r;
+    }
+  }
+}
+
+template <class V, class Op, bool SEG>
+static int launch(const void* x, const void* flags, void* out, long long n,
+                  int exclusive, void* status, void* stream) {
+  long long tiles = n_tiles_of(n);
+  if (tiles == 0) return 0;
+  scan_tiles<V, Op, SEG><<<(unsigned)tiles, THREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const V*>(x), static_cast<const int32_t*>(flags),
+      static_cast<V*>(out), n, exclusive, make_status<V>(status, n));
+  return (int)cudaGetLastError();
+}
+
+// Bytes of the zeroed status buffer a scan of n elements of value_bytes needs.
+extern "C" long long clo_scan_status_bytes(long long n, int value_bytes) {
+  return status_bytes(n, value_bytes);
+}
+
+// scan_carry: inclusive (exclusive != 0: exclusive) prefix sum of n integers
+// of value_bytes (4: mod 2^32, 8: mod 2^64).
+extern "C" int clo_scan_carry(const void* x, void* out, long long n,
+                              int value_bytes, int exclusive, void* status,
+                              void* stream) {
+  if (value_bytes == 4)
+    return launch<unsigned, OpAdd, false>(x, nullptr, out, n, exclusive,
+                                          status, stream);
+  if (value_bytes == 8)
+    return launch<unsigned long long, OpAdd, false>(x, nullptr, out, n,
+                                                    exclusive, status, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// seg_scan_carry: inclusive segmented scan of n int32 (is_float = 0) or
+// float32 (is_float = 1) values under op 0 add, 1 min, 2 max, restarting at
+// every nonzero int32 flag; exclusive != 0 (add only) gives the exclusive form.
+extern "C" int clo_seg_scan_carry(const void* x, const void* flags, void* out,
+                                  long long n, int is_float, int op,
+                                  int exclusive, void* status, void* stream) {
+  if (op != 0 && exclusive) return (int)cudaErrorInvalidValue;
+  if (is_float) {
+    switch (op) {
+      case 0: return launch<float, OpAdd, true>(x, flags, out, n, exclusive, status, stream);
+      case 1: return launch<float, OpMin, true>(x, flags, out, n, 0, status, stream);
+      case 2: return launch<float, OpMax, true>(x, flags, out, n, 0, status, stream);
+    }
+  } else {
+    switch (op) {
+      // int32 sums wrap: add as uint32_t, same bits
+      case 0: return launch<unsigned, OpAdd, true>(x, flags, out, n, exclusive, status, stream);
+      case 1: return launch<int32_t, OpMin, true>(x, flags, out, n, 0, status, stream);
+      case 2: return launch<int32_t, OpMax, true>(x, flags, out, n, 0, status, stream);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}

@@ -52,6 +52,19 @@ def to_numpy(tensor: torch.Tensor, dtype=None) -> np.ndarray:
     return out if dtype is None else out.view(dtype)
 
 
+def signed_view(t: torch.Tensor) -> torch.Tensor:
+    """uint16/32/64 tensors as their signed twins (same bits); others as
+    they are. Gathers, selects and compares of bits run on this view."""
+    if t.dtype in (torch.uint16, torch.uint32, torch.uint64):
+        return t.view(signed_equivalent(t.dtype))
+    return t
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] for any dtype (unsigned ones are gathered as signed bits)."""
+    return signed_view(x)[idx].view(x.dtype)
+
+
 def widen_u32(t: torch.Tensor) -> torch.Tensor:
     """u32 bits (uint32 or int32 tensor) -> int64 values in [0, 2^32).
 

@@ -1,5 +1,6 @@
 """Flagship pipelines (the framework's "models")."""
 
-from cl_ops_tpu_torch.models.pipeline import generate_table, sort_pipeline
+from cl_ops_tpu_torch.models.pipeline import (analytics_query, generate_table,
+                                              q1_query, sort_pipeline)
 
-__all__ = ["generate_table", "sort_pipeline"]
+__all__ = ["analytics_query", "generate_table", "q1_query", "sort_pipeline"]

@@ -1,15 +1,19 @@
 """Flagship end-to-end pipelines (the framework's "models").
 
-Counterpart of `cl_ops_tpu/models/pipeline.py`: generate_table and
-sort_pipeline (Threefry-generate keys -> sort -> sortedness check). The
-pipelines that need GROUP BY or join come with those operators.
+Counterpart of `cl_ops_tpu/models/pipeline.py`: generate_table,
+sort_pipeline (Threefry-generate keys -> sort -> sortedness check),
+analytics_query (generate -> filter -> GROUP BY) and q1_query (the TPC-H Q1
+shape). star_query and rollup_query need join and come with it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cl_ops_tpu_torch.interop import widen_u32
+from cl_ops_tpu_torch.interop import signed_view, widen_u32
+from cl_ops_tpu_torch.ops.exec.aggregate import (group_aggregate_cols,
+                                                 group_aggregate_prefix)
+from cl_ops_tpu_torch.ops.exec.filter import filter_compact
 from cl_ops_tpu_torch.ops.rng import threefry
 from cl_ops_tpu_torch.utils.platform import default_device
 
@@ -38,3 +42,63 @@ def sort_pipeline(n: int, seed: int = 0, device=None):
     sorted_keys = sort_new("abitonic").sort_with_device_data(keys)
     w = widen_u32(sorted_keys)
     return sorted_keys, torch.all(w[1:] >= w[:-1])
+
+
+def _key_bits(num_groups: int) -> int | None:
+    """The key_bits packing hint for group ids < num_groups (None above
+    30 bits)."""
+    kb = max((num_groups - 1).bit_length(), 1)
+    return kb if kb <= 30 else None
+
+
+def analytics_query(n: int, num_groups: int = 1024, seed: int = 0,
+                    threshold: int = 512, device=None):
+    """SELECT key % G, SUM(value) FROM t WHERE value < threshold GROUP BY 1.
+
+    Generate a table on `device` (None = "cuda") -> filter_compact ->
+    group_aggregate_prefix over the kept prefix. Returns (count of kept
+    rows, the (num_groups,) uint32 table indexed by group id).
+    """
+    keys, values = generate_table(n, seed, device=device)
+    count, fvals, fkeys = filter_compact(
+        values, lambda v: widen_u32(v) < threshold, keys)
+    gids = (widen_u32(fkeys) % num_groups).to(torch.int32)
+    gk, tbl, gcnt = group_aggregate_prefix(
+        gids, fvals, count, num_groups=num_groups, agg="sum",
+        key_bits=_key_bits(num_groups))
+    # re-index by group id; slots past the group count drop (into a spare
+    # last slot, so that no mask is read on the host)
+    slot = torch.arange(num_groups, dtype=torch.int32, device=gk.device)
+    keep = (slot < gcnt) & (gk >= 0) & (gk < num_groups)
+    dest = torch.where(keep, gk, num_groups).to(torch.int64)
+    table = torch.zeros(num_groups + 1, dtype=torch.int32, device=gk.device)
+    table.index_put_((dest,), signed_view(tbl))
+    return count, table[:num_groups].view(tbl.dtype)
+
+
+def q1_query(n: int, num_groups: int = 64, seed: int = 0,
+             threshold: int = 768, device=None):
+    """SELECT key, SUM(qty), SUM(price), MIN(qty), MAX(price), COUNT(*),
+    AVG(price) FROM t WHERE qty < threshold GROUP BY key: the TPC-H Q1
+    shape, one group_aggregate_cols call in its fused-WHERE form (the mask
+    leads the sort, packed above the key).
+
+    Returns (count, group_keys, tables, group_count), tables the six
+    aggregate columns in the SELECT order.
+    """
+    ids = torch.arange(n, dtype=torch.int32, device=default_device(device))
+
+    def column(counter: int, modulus: int) -> torch.Tensor:
+        bits = threefry.random_bits(seed, ids, counter)
+        return (widen_u32(bits) % modulus).to(torch.int32)
+    keys = column(0, num_groups)
+    qty = column(1, 1024)
+    price = column(2, 10000)
+    mask = qty < threshold
+    count = mask.sum(dtype=torch.int64)
+    gk, tables, gcnt = group_aggregate_cols(
+        keys, (qty, price, qty, price, qty, price),
+        ("sum", "sum", "min", "max", "count", "mean"),
+        num_groups=num_groups, valid_mask=mask,
+        key_bits=_key_bits(num_groups))
+    return count, gk, tables, gcnt

@@ -1,5 +1,5 @@
-"""Operator families: rng, sort, exec (query operators)."""
+"""Operator families: rng, scan, sort, exec (query operators)."""
 
-from cl_ops_tpu_torch.ops import exec, rng, sort  # noqa: F401
+from cl_ops_tpu_torch.ops import exec, rng, scan, sort  # noqa: F401
 
-__all__ = ["exec", "rng", "sort"]
+__all__ = ["exec", "rng", "scan", "sort"]

@@ -17,8 +17,7 @@ import numpy as np
 import torch
 
 from cl_ops_tpu_torch import interop
-from cl_ops_tpu_torch.core.dtypes import (canonicalize, signed_equivalent,
-                                          type_info)
+from cl_ops_tpu_torch.core.dtypes import canonicalize, type_info
 from cl_ops_tpu_torch.core.errors import BadArgsError
 from cl_ops_tpu_torch.core.registry import Registry, parse_options
 from cl_ops_tpu_torch.ops.sort import keys as keymod
@@ -53,13 +52,6 @@ class SortImplDef:
 
 
 sort_impls: Registry[SortImplDef] = Registry("sort")
-
-
-def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x[idx] for any dtype (unsigned ones are gathered as signed bits)."""
-    if x.dtype in (torch.uint16, torch.uint32, torch.uint64):
-        return x.view(signed_equivalent(x.dtype))[idx].view(x.dtype)
-    return x[idx]
 
 
 class Sorter:
@@ -147,10 +139,10 @@ class Sorter:
         payload = torch.arange(n, dtype=torch.int32, device=data.device)
         _, perm = self._limb_sorter(tuple(limbs), payload)
         perm = perm.to(torch.int64)
-        out = _take(data, perm)
+        out = interop.take(data, perm)
         if values is None:
             return out
-        return out, _take(values, perm)
+        return out, interop.take(values, perm)
 
     def sort_with_host_data(self, data, values=None, device=None):
         """Host round trip: numpy in, sort on `device` (None = "cuda"),

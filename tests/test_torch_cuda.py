@@ -2,7 +2,8 @@
 
 Small and odd geometries that chip_smoke.py does not reach: up to MAX_COLS
 columns, key prefixes shorter than the row, tied prefixes, single-block
-arrays and the k = 0 merge. Skips without CUDA. On a machine without JAX
+arrays and the k = 0 merge; scans of odd lengths, all ops and dtypes, with
+dense and nearly absent segment flags. Skips without CUDA. On a machine without JAX
 run it with `python -m pytest --noconftest tests/test_torch_cuda.py`.
 """
 
@@ -11,7 +12,9 @@ import pytest
 import torch
 
 from cl_ops_tpu_torch import interop
-from cl_ops_tpu_torch.ops.exec import filter_compact
+from cl_ops_tpu_torch.ops.exec import filter_compact, group_aggregate_cols
+from cl_ops_tpu_torch.ops.scan import kernels as sk
+from cl_ops_tpu_torch.ops.scan import segmented as seg
 from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
 from cl_ops_tpu_torch.ops.sort import sort_new
 
@@ -101,3 +104,91 @@ def test_filter_on_card(cuda):
     assert c == int(m.sum())
     np.testing.assert_array_equal(interop.to_numpy(fx)[:c], x[m])
     np.testing.assert_array_equal(interop.to_numpy(fp)[:c], p[m])
+
+
+# --- the scan kernels (csrc/scan.cu) ------------------------------------------
+
+SCAN_LENGTHS = [1, 1025, (1 << 20) + 3]
+
+
+def _f32_add_tolerance(x, flags):
+    """Allowed |kernel - plain| for a float32 segmented sum: the two sum in
+    different orders, so each may be off by a few hundred ulps of the
+    running sum of |x| in the segment; 1e-5 (about 84 ulps) of it, plus
+    1e-6 for sums near zero."""
+    return 1e-5 * seg.seg_scan_carry_plain(x.abs(), flags, "add", False) \
+        + 1e-6
+
+
+@pytest.mark.parametrize("n", SCAN_LENGTHS)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("exclusive", [False, True])
+def test_scan_carry_matches_plain(cuda, n, dtype, exclusive):
+    rng = np.random.default_rng(n)
+    info = np.iinfo(np.int32 if dtype == torch.int32 else np.int64)
+    x = torch.from_numpy(rng.integers(info.min, info.max, n, endpoint=True,
+                                      dtype=info.dtype))
+    sk.reset_launches()
+    got = sk.scan_carry(x.to(cuda), exclusive)
+    torch.cuda.synchronize()
+    name = "scan_carry" if dtype == torch.int32 else "scan_carry_wide"
+    assert sk.launches[name] == 1
+    assert torch.equal(got.cpu(), sk.scan_carry_plain(x, exclusive))
+
+
+@pytest.mark.parametrize("n", SCAN_LENGTHS)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("density", [1 / 256, 1e-6])
+def test_seg_scan_carry_matches_plain(cuda, n, dtype, op, density):
+    rng = np.random.default_rng(n + 1)
+    if dtype == torch.int32:
+        x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n,
+                                          dtype=np.int32))
+    else:
+        xs = rng.uniform(-1, 1, n).astype(np.float32)
+        if op != "add":
+            xs[rng.random(n) < 1e-3] = np.nan
+            xs[rng.random(n) < 1e-3] = -0.0
+        x = torch.from_numpy(xs)
+    flags = torch.from_numpy((rng.random(n) < density).astype(np.int32))
+    for exclusive in ([False, True] if op == "add" else [False]):
+        seg.reset_launches()
+        got = seg.seg_scan_carry(x.to(cuda), flags.to(cuda), op,
+                                 exclusive).cpu()
+        torch.cuda.synchronize()
+        assert seg.launches["seg_scan_carry"] == 1
+        want = seg.seg_scan_carry_plain(x, flags, op, exclusive)
+        if dtype == torch.float32 and op == "add":
+            assert bool(((got - want).abs()
+                         <= _f32_add_tolerance(x, flags)).all())
+        else:
+            assert torch.equal(got.isnan(), want.isnan())
+            ok = got.isnan()
+            assert torch.equal(got[~ok], want[~ok])  # +0 == -0
+
+
+def test_group_aggregate_cols_on_card(cuda):
+    rng = np.random.default_rng(5)
+    n, g = 300_000, 4096
+    keys = rng.integers(0, g, n).astype(np.int32)
+    v64 = rng.integers(-2 ** 63, 2 ** 63, n, dtype=np.int64)
+    v32 = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int32)
+    gk, (s, c, mn), cnt = group_aggregate_cols(
+        interop.to_torch(keys, cuda),
+        (interop.to_torch(v64, cuda), interop.to_torch(v64, cuda),
+         interop.to_torch(v32, cuda)), ("sum", "count", "min"),
+        num_groups=g)
+    uniq = np.unique(keys)
+    want_s = np.zeros(g, np.int64)
+    np.add.at(want_s, keys, v64)  # wraps mod 2^64
+    want_min = np.full(g, 2 ** 31 - 1, np.int32)
+    np.minimum.at(want_min, keys, v32)
+    assert int(cnt) == len(uniq)
+    np.testing.assert_array_equal(interop.to_numpy(gk)[:len(uniq)], uniq)
+    np.testing.assert_array_equal(interop.to_numpy(s)[:len(uniq)],
+                                  want_s[uniq])
+    np.testing.assert_array_equal(interop.to_numpy(c)[:len(uniq)],
+                                  np.bincount(keys)[uniq])
+    np.testing.assert_array_equal(interop.to_numpy(mn)[:len(uniq)],
+                                  want_min[uniq])

@@ -1,6 +1,7 @@
-"""The slice as a whole: generate_table, sort_pipeline and a filter over a
+"""The slices as a whole: generate_table, sort_pipeline and a filter over a
 generated table, cl_ops_tpu_torch against cl_ops_tpu (Pallas kernels in
-interpret mode), bit for bit."""
+interpret mode), bit for bit; analytics_query and q1_query against
+cl_ops_tpu (use_pallas=False) and against numpy."""
 
 import numpy as np
 import pytest
@@ -10,6 +11,7 @@ from cl_ops_tpu_torch import interop
 from cl_ops_tpu_torch.core.errors import CloOpsError
 from cl_ops_tpu_torch.models import pipeline as tpl
 from cl_ops_tpu_torch.ops.exec import filter_compact
+from cl_ops_tpu_torch.ops.rng import threefry
 
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
@@ -57,3 +59,57 @@ def test_entry_points_default_to_cuda():
         tpl.generate_table(16)
     with pytest.raises(CloOpsError):
         interop.to_torch(np.arange(4))
+
+
+def test_analytics_query_matches_reference_and_numpy():
+    n, g, threshold = 8192, 64, 300
+    wc, wt = jpl.analytics_query(n, num_groups=g, seed=4,
+                                 threshold=threshold, use_pallas=False)
+    gc, gt = tpl.analytics_query(n, num_groups=g, seed=4,
+                                 threshold=threshold, device="cpu")
+    assert int(gc) == int(wc)
+    assert gt.dtype == torch.uint32
+    np.testing.assert_array_equal(interop.to_numpy(gt), np.asarray(wt))
+    keys, vals = (interop.to_numpy(t) for t in
+                  tpl.generate_table(n, 4, device="cpu"))
+    m = vals < threshold
+    assert int(gc) == int(m.sum())
+    want = np.bincount(keys[m] % g, weights=vals[m], minlength=g)
+    np.testing.assert_array_equal(interop.to_numpy(gt), want)
+
+
+@pytest.mark.parametrize("num_groups", [64, 2048])  # sparse, dense
+def test_q1_query_matches_reference_and_numpy(num_groups):
+    n = 8192
+    want = jpl.q1_query(n, num_groups=num_groups, seed=5, use_pallas=False)
+    got = tpl.q1_query(n, num_groups=num_groups, seed=5, device="cpu")
+    assert int(got[0]) == int(want[0]) and int(got[3]) == int(want[3])
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    for w, g in zip(want[2], got[2]):
+        assert g.numpy().dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # numpy over the same generated columns
+    ids = torch.arange(n, dtype=torch.int32)
+    cols = [interop.widen_u32(threefry.random_bits(5, ids, c)).numpy() % m
+            for c, m in ((0, num_groups), (1, 1024), (2, 10000))]
+    keys, qty, price = cols
+    mask = qty < 768
+    k, q, p = keys[mask], qty[mask], price[mask]
+    uniq = np.unique(k)
+    cnt = np.bincount(k, minlength=num_groups)[uniq]
+    mn = np.full(num_groups, 2 ** 31 - 1)
+    mx = np.full(num_groups, -2 ** 31)
+    np.minimum.at(mn, k, q)
+    np.maximum.at(mx, k, p)
+    sp = np.bincount(k, weights=p, minlength=num_groups)[uniq]
+    m = len(uniq)
+    assert int(got[0]) == int(mask.sum()) and int(got[3]) == m
+    np.testing.assert_array_equal(got[1].numpy()[:m], uniq)
+    tabs = [t.numpy()[:m] for t in got[2]]
+    np.testing.assert_array_equal(
+        tabs[0], np.bincount(k, weights=q, minlength=num_groups)[uniq])
+    np.testing.assert_array_equal(tabs[1], sp)
+    np.testing.assert_array_equal(tabs[2], mn[uniq])
+    np.testing.assert_array_equal(tabs[3], mx[uniq])
+    np.testing.assert_array_equal(tabs[4], cnt)
+    np.testing.assert_allclose(tabs[5], sp / cnt, rtol=2 ** -23)
