@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
 """Smoke run of cl_ops_tpu_torch on one CUDA card.
 
-Builds the CUDA kernels from `cl_ops_tpu_torch/csrc/` (one nvcc per source,
-started together), holds each kernel against its plain PyTorch version at
-the main path's shapes, drives the main path (abitonic sort of 16M u32
-keys, KV sort of 16M u64 keys with u32 values, sort_pipeline at 16M,
-filter_compact over 64M rows at 10% selectivity, GROUP BY of 256M rows into
-1M groups, analytics_query over 64M rows, q1_query over 16M rows into 64K
-groups, and a GROUP BY of 16M int64 measures), checks every result against
-torch or numpy, and times the kernels and the phases with CUDA events. Run
-from the repository root:
+Builds the CUDA kernels from `cl_ops_tpu_torch/csrc/` (bitonic.cu, scan.cu
+and bandprobe.cu, one nvcc per source, started together), holds each of the
+ten kernels against its plain PyTorch version at the main path's shapes,
+drives the main path (abitonic sort of 16M u32 keys, KV sort of 16M u64
+keys with u32 values, sort_pipeline at 16M, filter_compact over 64M rows at
+10% selectivity, GROUP BY of 256M rows into 1M groups, analytics_query over
+64M rows, q1_query over 16M rows into 64K groups, a GROUP BY of 16M int64
+measures, the join probe of 256M rows against 16M and of 16M against 1M in
+three forms, hash_join_expand of 16M probes x 4 matches, rollup_query 16M x
+1M, star_query over 16M rows, and scan_new("blelloch") over 64M uint32 and
+float32 values), checks every result against torch, numpy or a formula,
+and times the kernels and the phases with CUDA events. Run from the
+repository root:
 
     python3 chip_smoke.py
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
-card's name and power limit, and before that one JSON line lists every
-kernel with its launches on the main path, time, bound and yardsticks. Any
+card's name and power limit, before that one JSON line lists every kernel
+with its launches on the main path, time, bound and yardsticks, and before
+that the script's total seconds. Any
 failure raises and exits non-zero; without CUDA it exits non-zero at once.
 """
 
@@ -42,6 +47,12 @@ GROUPBY_G = 1 << 20
 ANALYTICS_N = 1 << 26        # BASELINE configs 3 + 4 chained
 Q1_N, Q1_G = 1 << 24, 1 << 16  # bench_all.py q1_16Mx64K
 SCAN_N = 1 << 24
+JOIN_BIG = (1 << 28, 1 << 24)  # bench_all.py config 12: 256M x 16M
+JOIN_MID = (1 << 24, 1 << 20)  # bench_all.py config 5: 16M x 1M
+EXPAND_M, EXPAND_NB = 1 << 24, 1 << 22  # bench_all.py config 6
+ROLLUP_N, ROLLUP_DIM = 1 << 24, 1 << 20  # bench_all.py config 7
+STAR_N, STAR_DIM, STAR_CATS = 1 << 24, 1 << 14, 256  # README star_query
+BLOCK_SCAN_N = 1 << 26  # scan_bench.py: the top of its default sweep
 
 
 def phase(name):
@@ -78,12 +89,14 @@ def cuda_ms(fn, reps, before=None):
 
 KERNEL_GROUPS = (("bitonic", ("block_sort", "multi_stage", "pair_cross",
                               "block_merge")),
-                 ("scan", ("scan_tiles",)))
+                 ("scan", ("scan_tiles", "scan_block_tiles")),
+                 ("join", ("probe_band",)))
 
 
 def device_breakdown(cell, fn):
     """Trace one fn() with torch.profiler and print the device time by
-    kernel group (the port's bitonic and scan kernels, torch's own kernels,
+    kernel group (the port's bitonic, scan and band-probe kernels, torch's
+    own kernels,
     copies and fills), the call's time on the host clock and the device's
     idle share of it."""
     import torch
@@ -119,7 +132,419 @@ def device_breakdown(cell, fn):
                                       key=lambda kv: -kv[1])[:8])}))
 
 
+def scan_record(name, n, kern, plain, library, nbytes, shape, tol=None):
+    """Run a scan kernel and plain version on the same inputs, compare (exact,
+    or within tol(got, want) elementwise), time both and the library
+    call; returns the kernel's record."""
+    import torch
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if got.dtype.is_floating_point:
+        nan = got.isnan()
+        if not torch.equal(nan, want.isnan()):
+            raise AssertionError(f"{name} {shape}: NaNs differ")
+        diff = torch.where(nan, 0.0, (got - want).abs())
+        err = float(diff.max())
+        ok = bool((diff <= tol(got, want)).all()) if tol else err == 0
+    else:
+        ok, err = torch.equal(got, want), 0
+    if not ok:
+        raise AssertionError(f"{name} {shape}: kernel differs from its "
+                             f"plain version (max abs err {err})")
+    del got, want
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    ops_ms = n / PEAK_OPS_S * 1e3  # one add or compare per element
+    return {"name": name, "route": "cuda",
+            "source": "cl_ops_tpu_torch/csrc/scan.cu",
+            "replaces": REPLACES[name], "launches": 0,
+            "max_abs_err": err, "ms": cuda_ms(kern, 7),
+            "plain_ms": cuda_ms(plain, 3),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": cuda_ms(library, 7) if library else None,
+            "shape": shape}
+
+
+def band_record(shape, build, vals, probes, block, windowed):
+    """probe_band against its plain version on one probe set: window starts
+    from window_starts over sorted probes (as probe_banded_sorted computes
+    them), or all zero for the direct shape. Times both and the library's
+    torch.searchsorted (the count alone); returns the kernel's record."""
+    import torch
+    from cl_ops_tpu_torch.ops.exec import bandprobe as bp
+    m, nb, nl, nv = (probes[0].numel(), build[0].numel(), len(build),
+                     len(vals))
+    dev = probes[0].device
+    grid = -(-m // block)
+    if windowed:
+        heads = torch.arange(grid, device=dev) * block
+        tails = (heads + block).clamp(max=m) - 1
+        starts, ovf = bp.window_starts(build, [p[heads] for p in probes],
+                                       [p[tails] for p in probes])
+        if bool(ovf):
+            raise AssertionError(f"probe_band {shape}: a window overflowed")
+    else:
+        starts = torch.zeros(grid, dtype=torch.int32, device=dev)
+
+    def kern():
+        return bp.probe_band(build, vals, probes, starts, block)
+
+    def plain():
+        return bp.probe_band_plain(build, vals, probes, starts, block)
+    got, want = kern(), plain()
+    err = 0
+    for g, w in zip((got[0], got[1], *got[2], *got[3]),
+                    (want[0], want[1], *want[2], *want[3])):
+        err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs()
+                           .max()))
+    if err:
+        raise AssertionError(f"probe_band {shape}: kernel differs from its "
+                             f"plain version (max abs err {err})")
+    del got, want
+    lib_b, lib_p = ((build[0], probes[0]) if nl == 1 else
+                    (bp._composite(build), bp._composite(probes)))
+    # the bound reads each input once (probe limbs, the build's limbs and
+    # values) and writes each output once (count 4, eq 1, 8 per value
+    # column); the model also counts the window loads of every probe block
+    nbytes = m * nl * 4 + m * (5 + 8 * nv) + nb * (nl + nv) * 4
+    ops = 2 * nl * m * bp.WINDOW.bit_length()  # compare + select per step
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    ops_ms = ops / PEAK_OPS_S * 1e3
+    return {"name": "probe_band", "route": "cuda",
+            "source": "cl_ops_tpu_torch/csrc/bandprobe.cu",
+            "replaces": REPLACES["probe_band"], "launches": 0,
+            "max_abs_err": err, "ms": cuda_ms(kern, 7),
+            "plain_ms": cuda_ms(plain, 3),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": cuda_ms(lambda: torch.searchsorted(
+                lib_b, lib_p, right=True), 7),
+            "model_bytes": bp.band_pass_traffic_bytes(m, nl, nb,
+                                                      block // bp.ROW, nv),
+            "shape": shape}
+
+
+def band_kernel_records(dev):
+    """probe_band at the join cells' shapes (1 limb, 1 value, sorted
+    probes), with 2 limbs and 3 values, and in the direct form."""
+    import torch
+    from cl_ops_tpu_torch.ops.exec import bandprobe as bp
+    from cl_ops_tpu_torch.ops.exec import join as jn
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randint(hi, n, dtype=torch.int32):
+        return torch.randint(0, hi, (n,), dtype=dtype, device=dev,
+                             generator=gen)
+    recs = {}
+    for m, nb in (JOIN_BIG, JOIN_MID):
+        build = (torch.arange(nb, dtype=torch.int32, device=dev),)
+        probes = (torch.sort(randint(nb, m)).values,)
+        recs[f"{m}x{nb}"] = band_record(
+            f"m={m} nb={nb} 1 limb 1 value, sorted uniform probes",
+            build, (build[0] * 7 + 1,), probes,
+            jn._band_probe_rows(m, nb) * bp.ROW, True)
+        del probes
+    m, nb = JOIN_MID
+    k = torch.arange(nb, dtype=torch.int64, device=dev) * 3
+    p = torch.sort(randint(3 * nb, m, torch.int64)).values
+    recs["2 limbs 3 values"] = band_record(
+        f"m={m} nb={nb} 2 limbs 3 values, sorted uniform probes",
+        ((k >> 10).to(torch.int32), (k & 1023).to(torch.int32)),
+        tuple(randint(2 ** 31 - 1, nb) for _ in range(3)),
+        ((p >> 10).to(torch.int32), (p & 1023).to(torch.int32)),
+        jn._band_probe_rows(m, nb) * bp.ROW, True)
+    del k, p
+    nb = bp.DIRECT_MAX
+    build = (torch.arange(nb, dtype=torch.int32, device=dev) * 2,)
+    recs["direct"] = band_record(
+        f"m={STAR_N} nb={nb} direct, unsorted probes", build,
+        (build[0] + 5,), (randint(2 * nb, STAR_N),),
+        bp.PROBE_ROWS * bp.ROW, False)
+    return recs
+
+
+def block_scan_records(dev, n):
+    """scan_block (uint32 bits, float32) and scan_block_wide (uint32 ->
+    64-bit sums) against their plain versions, with the tile bases the
+    3-phase scan computes."""
+    import torch
+    from cl_ops_tpu_torch.ops.scan import kernels as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    xi = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), dtype=torch.int32,
+                       device=dev, generator=gen)
+    xf = torch.rand(n, device=dev, generator=gen) * 2 - 1
+    xu = xi.view(torch.uint32)
+    bi = sk._tile_bases(xi, torch.int32)
+    bf = sk._tile_bases(xf, torch.float32)
+    bw = sk._tile_bases(xu, torch.int64)
+
+    def f32_tol(got, want):
+        # float32 sums of one tile in two orders, plus the base: 1e-5 of
+        # the running sum of |x| in the tile and |base|, plus 1e-6
+        return 1e-5 * sk.scan_block_plain(xf.abs(), bf.abs(), False) + 1e-6
+    return {
+        "scan_block uint32": scan_record(
+            "scan_block", n, lambda: sk.scan_block(xi, bi),
+            lambda: sk.scan_block_plain(xi, bi, False),
+            lambda: torch.cumsum(xi, 0, dtype=torch.int32), 8 * n,
+            f"n={n} uint32 bits inclusive"),
+        "scan_block float32": scan_record(
+            "scan_block", n, lambda: sk.scan_block(xf, bf),
+            lambda: sk.scan_block_plain(xf, bf, False),
+            lambda: torch.cumsum(xf, 0), 8 * n, f"n={n} float32 inclusive",
+            f32_tol),
+        "scan_block_wide": scan_record(
+            "scan_block_wide", n, lambda: sk.scan_block_wide(xu, bw, True),
+            lambda: sk.scan_block_wide_plain(xu, bw, True),
+            lambda: torch.cumsum(xi, 0, dtype=torch.int64), 12 * n,
+            f"n={n} uint32 -> 64-bit sums exclusive")}
+
+
+def join_cells(dev, reset, count):
+    """The join and scan_new cells: each driven once between reset() and
+    count(), checked against numpy or a formula that needs no join, timed
+    with CUDA events and traced once."""
+    import numpy as np
+    import torch
+
+    from cl_ops_tpu_torch import interop
+    from cl_ops_tpu_torch.models import pipeline
+    from cl_ops_tpu_torch.ops.exec import bandprobe as bp
+    from cl_ops_tpu_torch.ops.exec import hash_join, hash_join_expand, psort
+    from cl_ops_tpu_torch.ops.exec import join as jn
+    from cl_ops_tpu_torch.ops.rng import threefry
+    from cl_ops_tpu_torch.ops.scan import kernels as sk
+    from cl_ops_tpu_torch.ops.scan import scan_new
+    from cl_ops_tpu_torch.ops.sort import sort_new
+
+    def check(name, ok):
+        if not ok:
+            raise AssertionError(name)
+
+    def u32(t):
+        return interop.widen_u32(t)
+
+    def report(cell, fn, reps, model_bytes, launches, rows, **extra):
+        ms = cuda_ms(fn, reps)
+        device_breakdown(cell, fn)
+        print(json.dumps({"cell": cell, "ms": ms,
+                          "mrows_s": rows / ms / 1e3,
+                          "model_bytes": model_bytes,
+                          "bound_ms": model_bytes / PEAK_BYTES_S * 1e3,
+                          "launches": launches, **extra}), flush=True)
+
+    def dim_and_probes(m, nb, seed_dim, seed_probe):
+        """bench_all.py configs 5 and 12: a shuffled arange dimension with
+        values key * 7 + 1 (sorted by the abitonic Sorter), probes
+        uniform over its keys."""
+        dim = np.arange(nb, dtype=np.uint32)
+        np.random.RandomState(seed_dim).shuffle(dim)
+        dimv = (dim * 7 + 1).astype(np.uint32)
+        probe = np.random.RandomState(seed_probe).randint(
+            0, nb, size=m).astype(np.uint32)
+        sdk, sdv = sort_new("abitonic").sort_with_device_data(
+            interop.to_torch(dim, dev), interop.to_torch(dimv, dev))
+        return sdk, sdv, interop.to_torch(probe, dev)
+
+    def check_probe(tag, probe, found, vals, rows=None):
+        keys = u32(probe) if rows is None else \
+            u32(probe)[rows.to(torch.int64)]
+        check(f"{tag}: every probe found", bool(found.all()))
+        check(f"{tag}: values", torch.equal(u32(vals),
+                                            (keys * 7 + 1) & 0xFFFFFFFF))
+        if rows is not None:
+            check(f"{tag}: rows a permutation", bool((torch.bincount(
+                rows.to(torch.int64), minlength=probe.numel()) == 1).all()))
+            check(f"{tag}: rows in key order",
+                  bool((keys[1:] >= keys[:-1]).all()))
+
+    # join probe 256M x 16M: bench_all.py config 12, the serving form
+    m, nb = JOIN_BIG
+    with phase(f"join probe {m} x {nb}, sorted_output, deferred"):
+        reset()
+        sdk, sdv, probe = dim_and_probes(m, nb, 15, 16)
+
+        def big():
+            return hash_join(sdk, sdv, probe, build_sorted=True,
+                             sorted_output=True, defer_overflow=True)
+        found, vals, rows, ovf = big()
+        torch.cuda.synchronize()
+        launches = count("join probe big")
+        check("join big: overflow flag clear", not bool(ovf))
+        check_probe("join big", probe, found, vals, rows)
+        del found, vals, rows
+        pr = jn._band_probe_rows(m, nb)
+        report(f"join probe {m} x {nb} sorted_output deferred", big, 3,
+               psort.sort_traffic_bytes(m, 2)
+               + bp.band_pass_traffic_bytes(m, 1, nb, pr), launches, m)
+        del sdk, sdv, probe
+
+    # join probe 16M x 1M in three forms: bench_all.py config 5
+    m, nb = JOIN_MID
+    with phase(f"join probe {m} x {nb}: restore, sorted_output, deferred"):
+        reset()
+        sdk, sdv, probe = dim_and_probes(m, nb, 6, 7)
+        count("join mid build sort")
+        pr = jn._band_probe_rows(m, nb)
+        band = bp.band_pass_traffic_bytes(m, 1, nb, pr)
+        sort2 = psort.sort_traffic_bytes(m, 2)
+        forms = {
+            "restore": (dict(), sort2 + band + sort2),
+            "sorted_output": (dict(sorted_output=True), sort2 + band),
+            "deferred": (dict(sorted_output=True, defer_overflow=True),
+                         sort2 + band)}
+        for form, (kw, model) in forms.items():
+            def fn(kw=kw):
+                return hash_join(sdk, sdv, probe, build_sorted=True, **kw)
+            reset()
+            out = fn()
+            torch.cuda.synchronize()
+            launches = count(f"join mid {form}")
+            if form == "deferred":
+                check("join mid: overflow flag clear", not bool(out[-1]))
+            check_probe(f"join mid {form}", probe, out[0], out[1],
+                        out[2] if kw else None)
+            del out
+            report(f"join probe {m} x {nb} {form}", fn, 3, model, launches,
+                   m)
+        del sdk, sdv, probe
+
+    # hash_join_expand 16M probes x 4 matches, 4M build: config 6
+    m, nb = EXPAND_M, EXPAND_NB
+    with phase(f"join expand {m} x 4, build {nb}"):
+        reset()
+        nkeys = nb // 4
+        dk = np.arange(nb, dtype=np.uint32) % nkeys
+        np.random.RandomState(8).shuffle(dk)
+        d_dk = interop.to_torch(dk, dev)
+        d_pk = interop.to_torch(np.random.RandomState(9).randint(
+            0, nkeys, size=m).astype(np.uint32), dev)
+        sdk, sdv = sort_new("abitonic").sort_with_device_data(
+            d_dk, torch.arange(nb, dtype=torch.int32, device=dev))
+        cap = 4 * m
+
+        def expand():
+            return hash_join_expand(sdk, sdv, d_pk, capacity=cap,
+                                    build_sorted=True)
+        total, pidx, evals = expand()
+        torch.cuda.synchronize()
+        launches = count("join expand")
+        check("expand total", int(total) == cap)
+        pidx64 = pidx.to(torch.int64)
+        check("expand pairs match", torch.equal(
+            u32(d_dk)[evals.to(torch.int64)], u32(d_pk)[pidx64]))
+        check("expand 4 per probe", bool((torch.bincount(
+            pidx64, minlength=m) == 4).all()))
+        del total, pidx, evals, pidx64
+        prm = jn._band_probe_rows(m, nb)
+        report(f"join expand {m} x 4", expand, 3,
+               psort.sort_traffic_bytes(m, 2)
+               + 2 * bp.band_pass_traffic_bytes(m, 1, nb, prm) + 2 * 4 * m
+               + bp.band_pass_traffic_bytes(cap, 1, m, 128, n_vals=3)
+               + bp.band_pass_traffic_bytes(cap, 1, nb, 128) + 3 * 4 * cap,
+               launches, cap, unit="rows are match pairs")
+        del sdk, sdv, d_dk, d_pk
+
+    # rollup_query 16M x 1M, the serving form: config 7
+    n, nd = ROLLUP_N, ROLLUP_DIM
+    with phase(f"rollup_query {n} x {nd}, defer"):
+        def rollup():
+            return pipeline.rollup_query(n, dim_rows=nd, seed=SEED,
+                                         defer=True, device=dev)
+        reset()
+        gk, table, cnt, ovf = rollup()
+        torch.cuda.synchronize()
+        launches = count("rollup_query")
+        check("rollup: overflow flag clear", not bool(ovf))
+        keys, meas = (interop.to_numpy(t) for t in pipeline.generate_table(
+            n, SEED, key_space=2 * nd, device=dev))
+        uniq = np.unique(keys)
+        contrib = np.where(keys % 2 == 0, meas.astype(np.int64), 0)
+        sums = np.bincount(keys, weights=contrib, minlength=2 * nd)[uniq]
+        c = int(cnt)
+        check("rollup count", c == len(uniq))
+        check("rollup keys", np.array_equal(interop.to_numpy(gk)[:c], uniq))
+        check("rollup sums", np.array_equal(
+            interop.to_numpy(table)[:c].astype(np.float64), sums))
+        del gk, table, keys, meas, contrib
+        report(f"rollup_query {n} x {nd} defer", rollup, 3,
+               psort.sort_traffic_bytes(n, 4)
+               + bp.band_pass_traffic_bytes(n, 1, nd,
+                                            jn._band_probe_rows(n, nd))
+               + 8 * 4 * n, launches, n, groups=c)
+
+    # star_query 16M, 16384 dim rows, 256 categories: README, pipeline
+    n, nd, cats = STAR_N, STAR_DIM, STAR_CATS
+    with phase(f"star_query {n}, dim {nd}, {cats} categories"):
+        def star():
+            return pipeline.star_query(n, dim_rows=nd, num_cats=cats,
+                                       seed=SEED, device=dev)
+        reset()
+        s_cnt, s_table = star()
+        torch.cuda.synchronize()
+        launches = count("star_query")
+        keys, vals = (interop.to_numpy(t) for t in pipeline.generate_table(
+            n, SEED, key_space=nd, device=dev))
+        ids = torch.arange(nd, dtype=torch.int32, device=dev)
+        cat = (u32(threefry.random_bits(SEED + 1, ids, 2)) % cats).cpu() \
+            .numpy()
+        keep = vals < 512
+        want = np.bincount(cat[keys[keep]], weights=vals[keep],
+                           minlength=cats).astype(np.uint64) % (1 << 32)
+        check("star count", int(s_cnt) == int(keep.sum()))
+        check("star table", np.array_equal(
+            interop.to_numpy(s_table).astype(np.uint64), want))
+        del keys, vals, s_table
+        report(f"star_query {n} dim {nd}", star, 3,
+               psort.sort_traffic_bytes(n, 3)
+               + bp.band_pass_traffic_bytes(n, 1, nd)
+               + psort.sort_traffic_bytes(n, 2)
+               + sk.scan_traffic_bytes(n, torch.uint32), launches, n,
+               kept=int(s_cnt))
+
+    # scan_new("blelloch"): the top of scan_bench's default sweep
+    n = BLOCK_SCAN_N
+    rng = np.random.default_rng(SEED + 7)
+    for elem, exclusive in (("uint", True), ("float", True)):
+        with phase(f"scan_new blelloch {n} {elem}"):
+            scanner = scan_new("blelloch", elem_dtype=elem)
+            if elem == "uint":
+                hx = rng.integers(0, 2 ** 32, n, dtype=np.uint32)
+            else:
+                hx = rng.uniform(-1, 1, n).astype(np.float32)
+            dx = interop.to_torch(hx, dev)
+
+            def scan(dx=dx, scanner=scanner, exclusive=exclusive):
+                return scanner.scan_with_device_data(dx, exclusive=exclusive)
+            reset()
+            got = interop.to_numpy(scan())
+            launches = count(f"scan_new {elem}")
+            if elem == "uint":
+                inc = np.cumsum(hx.astype(np.uint64))
+                check("scan_new uint -> ulong", np.array_equal(
+                    got, inc - hx if exclusive else inc))
+                err = 0.0
+            else:
+                # float32 tiles with float64 tile bases against float64
+                # sums: within 1e-6 of the running sum of |x|, plus 1e-6
+                x64 = hx.astype(np.float64)
+                exact = np.cumsum(x64) - (x64 if exclusive else 0)
+                err = float(np.abs(got - exact).max())
+                check("scan_new float32", bool((np.abs(got - exact) <= 1e-6
+                                                * np.cumsum(np.abs(x64))
+                                                + 1e-6).all()))
+            del got
+            report(f"scan_new blelloch {n} {elem} -> "
+                   f"{str(scanner.sum_dtype).removeprefix('torch.')}",
+                   scan, 5, sk.scan_traffic_bytes(
+                       n, scanner.sum_dtype, single_pass=False,
+                       elem_dtype=scanner.elem_dtype), launches, n,
+                   max_abs_err_vs_float64=err)
+            del dx, hx
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -128,6 +553,7 @@ def main() -> int:
 
     from cl_ops_tpu_torch import interop
     from cl_ops_tpu_torch.models import pipeline
+    from cl_ops_tpu_torch.ops.exec import bandprobe as bp
     from cl_ops_tpu_torch.ops.exec import (filter_compact,
                                            group_aggregate_cols,
                                            group_aggregate_sorted, psort)
@@ -151,11 +577,11 @@ def main() -> int:
         print("torch", torch.__version__, "cuda", torch.version.cuda,
               "device", torch.cuda.get_device_name(0))
         t = time.perf_counter()
-        with ThreadPoolExecutor(2) as pool:  # one nvcc per source
-            for f in [pool.submit(m.load_kernels) for m in (bk, sk)]:
+        with ThreadPoolExecutor(3) as pool:  # one nvcc per source
+            for f in [pool.submit(m.load_kernels) for m in (bk, sk, bp)]:
                 f.result()
         print(f"kernel build+load: {time.perf_counter() - t:.3f} s")
-        for line in (bk.build_log + sk.build_log).splitlines():
+        for line in (bk.build_log + sk.build_log + bp.build_log).splitlines():
             if "registers" in line or "Compiling entry" in line:
                 print("ptxas:", line.strip())
 
@@ -237,38 +663,6 @@ def main() -> int:
         for r in u32_recs + kv_recs:
             print("kernel", json.dumps(r))
 
-    # -- the scan kernels against their plain versions -----------------------
-    def scan_record(name, n, kern, plain, library, nbytes, shape, tol=None):
-        """Run kernel and plain version on the same inputs, compare (exact,
-        or within tol(got, want) elementwise), time both and the library
-        call; returns the kernel's record."""
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        if got.dtype.is_floating_point:
-            nan = got.isnan()
-            if not torch.equal(nan, want.isnan()):
-                raise AssertionError(f"{name} {shape}: NaNs differ")
-            diff = torch.where(nan, 0.0, (got - want).abs())
-            err = float(diff.max())
-            ok = bool((diff <= tol(got, want)).all()) if tol else err == 0
-        else:
-            ok, err = torch.equal(got, want), 0
-        if not ok:
-            raise AssertionError(f"{name} {shape}: kernel differs from its "
-                                 f"plain version (max abs err {err})")
-        del got, want
-        bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-        ops_ms = n / PEAK_OPS_S * 1e3  # one add or compare per element
-        return {"name": name, "route": "cuda",
-                "source": "cl_ops_tpu_torch/csrc/scan.cu",
-                "replaces": REPLACES[name], "launches": 0,
-                "max_abs_err": err, "ms": cuda_ms(kern, 7),
-                "plain_ms": cuda_ms(plain, 3),
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": cuda_ms(library, 7) if library else None,
-                "shape": shape}
-
     with phase("scan kernels vs plain"):
         scan_recs = {}
         for n in (GROUPBY_N, SCAN_N):
@@ -311,15 +705,21 @@ def main() -> int:
                     f"n={SCAN_N} {dt} {op} runs~{SCAN_N // 256}",
                     f32_sum_tol if (dt, op) == ("float32", "add") else None)
         del vals, flags
+        scan_recs.update(block_scan_records(dev, BLOCK_SCAN_N))
         for r in scan_recs.values():
             print("kernel", json.dumps(r))
 
-    all_kernels = bk.KERNELS + sk.KERNELS + seg.KERNELS
-    counters = (bk.launches, sk.launches, seg.launches)
+    with phase("band probe kernel vs plain"):
+        band_recs = band_kernel_records(dev)
+        for r in band_recs.values():
+            print("kernel", json.dumps(r))
+
+    all_kernels = bk.KERNELS + sk.KERNELS + seg.KERNELS + bp.KERNELS
+    counters = (bk.launches, sk.launches, seg.launches, bp.launches)
     main_launches = dict.fromkeys(all_kernels, 0)
 
     def reset():
-        for m in (bk, sk, seg):
+        for m in (bk, sk, seg, bp):
             m.reset_launches()
 
     def count(name):
@@ -581,15 +981,21 @@ def main() -> int:
                           "n": SCAN_N, "groups": g, "ms": w_ms,
                           "launches": w_launches}))
 
+    join_cells(dev, reset, count)
+
     for name, n in main_launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
     summary = u32_recs + [scan_recs[f"scan_carry {GROUPBY_N}"],
                           scan_recs["scan_carry_wide"],
-                          scan_recs["seg_scan_carry max int32"]]
+                          scan_recs["seg_scan_carry max int32"],
+                          scan_recs["scan_block uint32"],
+                          scan_recs["scan_block_wide"],
+                          band_recs[f"{JOIN_BIG[0]}x{JOIN_BIG[1]}"]]
     for r in summary:
         r["launches"] = main_launches[r["name"]]
+    print(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -606,6 +1012,9 @@ REPLACES = {
     "scan_carry": "cl_ops_tpu/ops/scan/kernels.py:182",
     "scan_carry_wide": "cl_ops_tpu/ops/scan/kernels.py:208",
     "seg_scan_carry": "cl_ops_tpu/ops/scan/segmented.py:111",
+    "scan_block": "cl_ops_tpu/ops/scan/kernels.py:148",
+    "scan_block_wide": "cl_ops_tpu/ops/scan/kernels.py:241",
+    "probe_band": "cl_ops_tpu/ops/exec/bandprobe.py:87",
 }
 
 # Device-memory bytes per row of the GROUP BY cell outside the sort, counted

@@ -101,6 +101,21 @@ def type_sizeof(dt: DTypeLike) -> int:
     return type_info(dt).size
 
 
+def default_sum_dtype(elem_dtype: DTypeLike) -> torch.dtype:
+    """Widening rule for scan sums (elem type -> accumulator type).
+
+    The reference lets the caller pick any sum type >= the elem type
+    (clo_scan_bench defaults uint -> ulong); the default is the next wider
+    type of the same kind, capped at 64 bits. float16/bfloat16 sum in
+    float32; float32 and float64 keep their width.
+    """
+    t = type_info(elem_dtype)
+    if not t.is_integer:
+        return torch.float32 if t.size <= 2 else t.dtype
+    width = min(t.size * 2, 8)
+    return canonicalize(f"{'i' if t.is_signed else 'u'}{width}")
+
+
 def signed_equivalent(dt: DTypeLike) -> torch.dtype:
     """Signed integer dtype of the same width, for `.view()` bit work."""
     return {1: torch.int8, 2: torch.int16, 4: torch.int32,

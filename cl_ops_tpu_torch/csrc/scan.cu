@@ -317,6 +317,97 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// --- the base-fed block scan (3-phase scan, phase 3) ------------------------------
+//
+// Replaces cl_ops_tpu/ops/scan/kernels.py _scan_block_kernel (32-bit integer
+// sums mod 2^32 and float32 sums) and _wide_scan_block_kernel (64-bit sums,
+// there as two u32 limbs, here on native uint64_t). The caller computes
+// every tile's base (the sum of all elements before the tile) in two small
+// passes, so tiles are independent: no ticket and no look-back. A tile of
+// TILE elements is scanned in registers with the same warp-striped loads
+// and two-level shuffle scan as scan_tiles, then base[tile] is added:
+// out = (in-tile inclusive sum + base) [- x when exclusive], the JAX
+// kernel's form. Bound: bytes, one read of x and one write of out per
+// element (the caller's block sums read x once more). Inputs narrower than
+// the sum widen on load (In -> V): int32 sign-extends and uint32
+// zero-extends into uint64_t, so a 64-bit scan of 32-bit data reads 4
+// bytes per element.
+
+template <class V, class In>
+__device__ __forceinline__ V widen(In x) {
+  return (V)x;
+}
+template <>
+__device__ __forceinline__ unsigned long long
+widen<unsigned long long, int32_t>(int32_t x) {
+  return (unsigned long long)(long long)x;
+}
+
+template <class In, class V>
+__global__ void __launch_bounds__(THREADS)
+    scan_block_tiles(const In* __restrict__ x, const V* __restrict__ base,
+                     V* __restrict__ out, long long n, int exclusive) {
+  __shared__ V s_w[WARPS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long tile = blockIdx.x;
+  const long long start = tile * TILE + (long long)warp * WARP_ELEMS;
+
+  V xv[ITEMS], p[ITEMS];
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    long long i = start + k * 32 + lane;
+    xv[k] = i < n ? widen<V>(x[i]) : V(0);
+  }
+  V run = V(0);  // the warp's total so far
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    V q = xv[k];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      V o = __shfl_up_sync(FULL, q, d);
+      if (lane >= d) q = o + q;
+    }
+    p[k] = run + q;
+    run = __shfl_sync(FULL, p[k], 31);
+  }
+  if (lane == 0) s_w[warp] = run;
+  __syncthreads();
+  if (warp == 0) {
+    V w = lane < WARPS ? s_w[lane] : V(0);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      V o = __shfl_up_sync(FULL, w, d);
+      if (lane >= d) w = o + w;
+    }
+    V ex = __shfl_up_sync(FULL, w, 1);  // total of the warps before
+    if (lane < WARPS) s_w[lane] = lane == 0 ? V(0) : ex;
+  }
+  __syncthreads();
+  const V wp = s_w[warp];
+  const V b = base[tile];
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    long long i = start + k * 32 + lane;
+    if (i < n) {
+      V r = (wp + p[k]) + b;
+      out[i] = exclusive ? r - xv[k] : r;
+    }
+  }
+}
+
+template <class In, class V>
+static int launch_block(const void* x, const void* base, void* out,
+                        long long n, int exclusive, void* stream) {
+  long long tiles = n_tiles_of(n);
+  if (tiles == 0) return 0;
+  scan_block_tiles<In, V><<<(unsigned)tiles, THREADS, 0,
+                            (cudaStream_t)stream>>>(
+      static_cast<const In*>(x), static_cast<const V*>(base),
+      static_cast<V*>(out), n, exclusive);
+  return (int)cudaGetLastError();
+}
+
 template <class V, class Op, bool SEG>
 static int launch(const void* x, const void* flags, void* out, long long n,
                   int exclusive, void* status, void* stream) {
@@ -344,6 +435,26 @@ extern "C" int clo_scan_carry(const void* x, void* out, long long n,
   if (value_bytes == 8)
     return launch<unsigned long long, OpAdd, false>(x, nullptr, out, n,
                                                     exclusive, status, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Elements per tile of every scan kernel (one base per tile for scan_block).
+extern "C" int clo_scan_tile() { return TILE; }
+
+// scan_block: per-tile inclusive (exclusive != 0: exclusive) scan of n
+// elements plus base[tile]. kind 0: 32-bit integers mod 2^32 (x, base and
+// out 4 bytes); 1: float32; 2, 3, 4: 64-bit sums mod 2^64 (base and out
+// 8 bytes) of int32 (sign-extended), uint32 (zero-extended) or 64-bit x.
+extern "C" int clo_scan_block(const void* x, const void* base, void* out,
+                              long long n, int kind, int exclusive,
+                              void* stream) {
+  switch (kind) {
+    case 0: return launch_block<unsigned, unsigned>(x, base, out, n, exclusive, stream);
+    case 1: return launch_block<float, float>(x, base, out, n, exclusive, stream);
+    case 2: return launch_block<int32_t, unsigned long long>(x, base, out, n, exclusive, stream);
+    case 3: return launch_block<unsigned, unsigned long long>(x, base, out, n, exclusive, stream);
+    case 4: return launch_block<unsigned long long, unsigned long long>(x, base, out, n, exclusive, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

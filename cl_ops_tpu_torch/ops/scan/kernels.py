@@ -1,21 +1,31 @@
-"""Prefix sums: scan_1d on the single-pass scan_carry kernels.
+"""Prefix sums: scan_1d on the scan_carry and scan_block kernels.
 
-Counterpart of `cl_ops_tpu/ops/scan/kernels.py`. The integer single-pass
-path (`single_pass=True`) runs one CUDA kernel, `csrc/scan.cu` scan_carry,
-in two forms: 32-bit sums mod 2^32 ("scan_carry", replacing
-`_scan_carry_kernel`) and 64-bit sums mod 2^64 ("scan_carry_wide", replacing
-`_wide_scan_carry_kernel`, on native 64-bit integers instead of two limbs).
-Each reads its input once and writes its output once: 8n bytes for 32-bit
-sums, 16n for 64-bit sums; the cross-block carry is a decoupled look-back
-(see the note at the top of csrc/scan.cu).
+Counterpart of `cl_ops_tpu/ops/scan/kernels.py`. Two designs, four CUDA
+kernels in `csrc/scan.cu`:
+
+  * single pass (`single_pass=True`, integer sums): scan_carry, a decoupled
+    look-back, in two forms: 32-bit sums mod 2^32 ("scan_carry", replacing
+    `_scan_carry_kernel`) and 64-bit sums mod 2^64 ("scan_carry_wide",
+    replacing `_wide_scan_carry_kernel`, on native 64-bit integers instead
+    of two limbs). One read and one write per element.
+  * 3-phase (`single_pass=False`, and every float32 sum, as in JAX): the
+    per-tile sums and their exclusive scan are glue in plain torch
+    (phases 1-2), then scan_block scans every TILE-element tile and adds
+    its precomputed base (phase 3): "scan_block" for 32-bit integer sums
+    mod 2^32 and float32 sums (replacing `_scan_block_kernel`),
+    "scan_block_wide" for 64-bit sums mod 2^64 (replacing
+    `_wide_scan_block_kernel`), which widens 32-bit input on load. The
+    input is read twice (block sums, kernel) and the sums written once.
 
 float64 sums are a plain torch.cumsum, as the JAX package leaves them to
-XLA. The 3-phase path (`single_pass=False`, and every float32 sum) needs
-`_scan_block_kernel` / `_wide_scan_block_kernel`, which are not ported yet:
-it raises BadArgsError.
+XLA. float16/bfloat16 sum types are computed in float32 and rounded at the
+end (JAX sums in the narrow type). The float32 tile bases are a float64
+cumsum of float32 tile sums (JAX: a float32 cumsum), so float32 results
+differ from JAX's by rounding; integer sums are exact.
 
-`scan_carry` runs the plain PyTorch version on CPU tensors and launches the
-kernel on CUDA tensors, adding one to `launches[<name>]` per launch.
+Each kernel wrapper runs its plain PyTorch version on CPU tensors and
+launches its kernel on CUDA tensors, adding one to `launches[<name>]` per
+launch.
 """
 
 from __future__ import annotations
@@ -26,10 +36,15 @@ import torch
 
 from cl_ops_tpu_torch.core.dtypes import canonicalize
 from cl_ops_tpu_torch.core.errors import BadArgsError, BadDtypeError
+from cl_ops_tpu_torch.interop import signed_view
 from cl_ops_tpu_torch.utils import intmath
+from cl_ops_tpu_torch.utils.bits import cdiv
 from cl_ops_tpu_torch.utils.platform import build_library
 
-KERNELS = ("scan_carry", "scan_carry_wide")
+KERNELS = ("scan_carry", "scan_carry_wide", "scan_block", "scan_block_wide")
+TILE = 4096    # elements per tile: csrc/scan.cu TILE
+THREADS = 512  # csrc/scan.cu THREADS
+WARPS = THREADS // 32
 
 # Kernel launches per wrapper since the last reset_launches().
 launches = dict.fromkeys(KERNELS, 0)
@@ -61,22 +76,32 @@ def load_kernels():
         # (x, flags, out, n, is_float, op, exclusive, status, stream)
         lib.clo_seg_scan_carry.argtypes = [p, p, p, ll, i, i, i, p, p]
         lib.clo_seg_scan_carry.restype = i
+        # (x, base, out, n, kind, exclusive, stream)
+        lib.clo_scan_block.argtypes = [p, p, p, ll, i, i, p]
+        lib.clo_scan_block.restype = i
+        lib.clo_scan_tile.restype = i
+        if lib.clo_scan_tile() != TILE:
+            raise RuntimeError("csrc/scan.cu TILE differs from kernels.TILE")
         _lib = lib
     return _lib
+
+
+def _stream_call(fn_name: str, dev, *args) -> None:
+    """Call `fn_name`(*args, stream) of the scan library on `dev`."""
+    lib = load_kernels()
+    with torch.cuda.device(dev):  # the library launches on it
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn_name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {fn_name} failed: error {err}")
 
 
 def run_scan_kernel(fn_name: str, x: torch.Tensor, *args) -> None:
     """Call `fn_name`(*args, status, stream) of the scan library on x's
     device with a freshly zeroed look-back status buffer for x."""
-    lib = load_kernels()
-    status = torch.zeros(lib.clo_scan_status_bytes(x.numel(),
-                                                   x.element_size()),
-                         dtype=torch.uint8, device=x.device)
-    with torch.cuda.device(x.device):  # the library launches on it
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, fn_name)(*args, status.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {fn_name} failed: error {err}")
+    status = torch.zeros(load_kernels().clo_scan_status_bytes(
+        x.numel(), x.element_size()), dtype=torch.uint8, device=x.device)
+    _stream_call(fn_name, x.device, *args, status.data_ptr())
 
 
 def check_1d(x: torch.Tensor, dtypes) -> bool:
@@ -89,7 +114,17 @@ def check_1d(x: torch.Tensor, dtypes) -> bool:
     return x.device.type == "cuda"
 
 
-# --- kernel and plain version --------------------------------------------------
+def smem_bytes(kernel: str, value_bytes: int) -> int:
+    """Static shared memory per block of a scan kernel (csrc/scan.cu), for
+    values of value_bytes."""
+    if kernel in ("scan_carry", "scan_carry_wide"):
+        return 4 + WARPS * (value_bytes + 4)  # tile ticket, warp pairs
+    if kernel in ("scan_block", "scan_block_wide"):
+        return WARPS * value_bytes            # warp totals
+    raise BadArgsError(f"unknown scan kernel {kernel!r}")
+
+
+# --- single pass: scan_carry -----------------------------------------------------
 
 def scan_carry_plain(x: torch.Tensor, exclusive: bool) -> torch.Tensor:
     """Plain version of scan_carry: prefix sums mod 2^32 (int32) or 2^64
@@ -111,19 +146,168 @@ def scan_carry(x: torch.Tensor, exclusive: bool = False) -> torch.Tensor:
     return out
 
 
+# --- 3-phase: scan_block ---------------------------------------------------------
+
+def _int_block_plain(xw: torch.Tensor, base: torch.Tensor,
+                     exclusive: bool) -> torch.Tensor:
+    """Per-tile prefix sums plus base[tile], mod 2^bits of xw's dtype: the
+    in-tile sum is the global prefix sum less its value before the tile,
+    which is exact for wrapping integers."""
+    n = xw.numel()
+    if n == 0:
+        return xw.clone()
+    g = intmath.cumsum(xw)
+    heads = torch.arange(cdiv(n, TILE), device=xw.device) * TILE
+    before = intmath.sub(g[heads], xw[heads])
+    tile = torch.arange(n, device=xw.device) // TILE
+    r = intmath.add(intmath.sub(g, before[tile]), base[tile])
+    return intmath.sub(r, xw) if exclusive else r
+
+
+def _tiles(x: torch.Tensor) -> torch.Tensor:
+    """x as (tiles, TILE) rows, the ragged tail padded with zeros."""
+    pad = cdiv(x.numel(), TILE) * TILE - x.numel()
+    if pad:
+        x = torch.cat([x, torch.zeros(pad, dtype=x.dtype, device=x.device)])
+    return x.view(-1, TILE)
+
+
+def scan_block_plain(x: torch.Tensor, base: torch.Tensor,
+                     exclusive: bool) -> torch.Tensor:
+    """Plain version of scan_block: int32 (u32 bits, sums mod 2^32) or
+    float32 per-tile sums plus base[tile]."""
+    if x.dtype == torch.int32:
+        return _int_block_plain(x, base, exclusive)
+    t = _tiles(x)
+    r = torch.cumsum(t, 1) + base[:, None]
+    if exclusive:
+        r = r - t
+    return r.reshape(-1)[:x.numel()]
+
+
+def scan_block_wide_plain(x: torch.Tensor, base: torch.Tensor,
+                          exclusive: bool) -> torch.Tensor:
+    """Plain version of scan_block_wide: 64-bit per-tile sums mod 2^64 plus
+    base[tile] (int64 bits) of int32 (sign-extended), uint32
+    (zero-extended) or 64-bit input."""
+    return _int_block_plain(intmath.astype(x, torch.int64)
+                            if x.dtype.itemsize == 4 else signed_view(x),
+                            base, exclusive)
+
+
+def _check_base(x: torch.Tensor, base: torch.Tensor, dtype) -> None:
+    if base.dtype != dtype or base.dim() != 1 or not base.is_contiguous() \
+            or base.numel() != cdiv(x.numel(), TILE) \
+            or base.device != x.device:
+        raise BadArgsError(f"base must be a contiguous {dtype} tensor with "
+                           "one entry per tile, on x's device")
+
+
+def scan_block(x: torch.Tensor, base: torch.Tensor,
+               exclusive: bool = False) -> torch.Tensor:
+    """Per-tile inclusive (or exclusive) prefix sums of an int32 (sums mod
+    2^32) or float32 tensor plus base[tile], one base per TILE elements
+    (same dtype as x)."""
+    cuda = check_1d(x, (torch.int32, torch.float32))
+    _check_base(x, base, x.dtype)
+    if not cuda:
+        return scan_block_plain(x, base, exclusive)
+    out = torch.empty_like(x)
+    if x.numel():
+        _stream_call("clo_scan_block", x.device, x.data_ptr(),
+                     base.data_ptr(), out.data_ptr(), x.numel(),
+                     int(x.dtype == torch.float32), int(exclusive))
+        launches["scan_block"] += 1
+    return out
+
+
+_WIDE_KIND = {torch.int32: 2, torch.uint32: 3, torch.int64: 4,
+              torch.uint64: 4}
+
+
+def scan_block_wide(x: torch.Tensor, base: torch.Tensor,
+                    exclusive: bool = False) -> torch.Tensor:
+    """Per-tile 64-bit prefix sums mod 2^64 plus base[tile] (int64 bits,
+    one per TILE elements); int32 input sign-extends, uint32 zero-extends.
+    Returns int64 bits."""
+    cuda = check_1d(x, tuple(_WIDE_KIND))
+    _check_base(x, base, torch.int64)
+    if not cuda:
+        return scan_block_wide_plain(x, base, exclusive)
+    out = torch.empty(x.numel(), dtype=torch.int64, device=x.device)
+    if x.numel():
+        _stream_call("clo_scan_block", x.device, x.data_ptr(),
+                     base.data_ptr(), out.data_ptr(), x.numel(),
+                     _WIDE_KIND[x.dtype], int(exclusive))
+        launches["scan_block_wide"] += 1
+    return out
+
+
+def _tile_bases(x: torch.Tensor, work: torch.dtype) -> torch.Tensor:
+    """Phases 1-2: each tile's sum, then their exclusive scan, in `work`
+    (int32 for sums mod 2^32, int64 for sums mod 2^64, float32)."""
+    full = x.numel() // TILE * TILE
+    parts = [x[:full].view(-1, TILE)]
+    if full < x.numel():
+        parts.append(x[full:].view(1, -1))
+    if work == torch.float32:
+        sums = torch.cat([p.sum(1) for p in parts]).to(torch.float64)
+        return (torch.cumsum(sums, 0) - sums).to(torch.float32)
+    sums = []
+    for p in parts:
+        if p.dtype.itemsize == 8:
+            sums.append(intmath.row_sums(signed_view(p)))
+        else:  # exact in int64; uint32 counts 2^32 per negative signed view
+            s = signed_view(p).sum(1)
+            if p.dtype == torch.uint32:
+                s = s + (signed_view(p) < 0).sum(1) * (1 << 32)
+            sums.append(s)
+    sums = torch.cat(sums)
+    if work == torch.int32:
+        sums = intmath.wrap(sums, torch.int32)
+    return intmath.cumsum(sums, exclusive=True)
+
+
+def _three_phase(x: torch.Tensor, sd: torch.dtype,
+                 exclusive: bool) -> torch.Tensor:
+    if not intmath.is_int(sd):
+        xf = x if x.dtype == torch.float32 else x.to(torch.float32)
+        xf = xf.contiguous()
+        res = scan_block(xf, _tile_bases(xf, torch.float32), exclusive)
+        return res if sd == torch.float32 else res.to(sd)
+    if sd.itemsize == 8:
+        xk = x
+        if x.dtype.itemsize < 4:
+            xk = intmath.astype(x, torch.uint32 if intmath.is_unsigned(
+                x.dtype) else torch.int32)
+        xk = xk.contiguous()
+        return scan_block_wide(xk, _tile_bases(xk, torch.int64),
+                               exclusive).view(sd)
+    xw = intmath.astype(x, torch.int32).contiguous()
+    res = scan_block(xw, _tile_bases(xw, torch.int32), exclusive)
+    return intmath.astype(res.view(torch.uint32) if intmath.is_unsigned(sd)
+                          else res, sd)
+
+
 # --- scan_1d -------------------------------------------------------------------
 
-def _unported(kernel: str, line: int) -> BadArgsError:
-    return BadArgsError(
-        f"the 3-phase scan needs {kernel} (cl_ops_tpu/ops/scan/kernels.py:"
-        f"{line}), which is not ported yet; integer sums take "
-        "single_pass=True")
+def scan_traffic_bytes(n: int, sum_dtype, *, single_pass: bool = True,
+                       elem_dtype=None) -> int:
+    """Bytes the kernels of scan_1d move, 4 or 8 per element and per pass.
 
-
-def scan_traffic_bytes(n: int, sum_dtype) -> int:
-    """Bytes the scan_carry kernel of scan_1d(single_pass=True) moves: one
-    read of its input and one write of its sums, 4 or 8 bytes each."""
-    return n * 2 * (8 if canonicalize(sum_dtype).itemsize == 8 else 4)
+    Single pass (integer sums): one read of the converted input and one
+    write of the sums. 3-phase (single_pass=False, and float sums): the
+    block sums read the input once, scan_block reads it again and writes
+    the sums. elem_dtype sets the 3-phase input width (default: the
+    sum's): 8-byte integers stay 8 bytes, everything else is read as 4.
+    """
+    sd = canonicalize(sum_dtype)
+    ss = 8 if sd.itemsize == 8 else 4
+    if single_pass and intmath.is_int(sd):
+        return n * 2 * ss
+    ed = sd if elem_dtype is None else canonicalize(elem_dtype)
+    es = 8 if intmath.is_int(ed) and ed.itemsize == 8 else 4
+    return n * (2 * es + ss)
 
 
 def scan_1d(x: torch.Tensor, *, sum_dtype, exclusive: bool = True,
@@ -131,10 +315,11 @@ def scan_1d(x: torch.Tensor, *, sum_dtype, exclusive: bool = True,
     """Prefix sum over a 1-D tensor, in `sum_dtype`.
 
     Integer sums wrap mod 2^bits of sum_dtype (inputs convert as numpy's
-    astype does); exclusive=False gives the inclusive form. Integer sums run
-    the single-pass kernel and need single_pass=True; float64 sums are a
-    torch.cumsum. The JAX options block_rows and interpret are TPU tiling
-    and Pallas settings with no counterpart here.
+    astype does); exclusive=False gives the inclusive form. single_pass
+    picks the scan_carry kernel for integer sums; float sums always take
+    the 3-phase path; float64 sums are a torch.cumsum. The JAX options
+    block_rows and interpret are TPU tiling and Pallas settings with no
+    counterpart here.
     """
     if x.dim() != 1:
         raise BadArgsError(f"scan_1d expects 1-D input, got {tuple(x.shape)}")
@@ -144,13 +329,12 @@ def scan_1d(x: torch.Tensor, *, sum_dtype, exclusive: bool = True,
         acc = torch.cumsum(xs, 0)
         return acc - xs if exclusive else acc
     if not intmath.is_int(sd):
-        raise _unported("_scan_block_kernel", 148)
+        return _three_phase(x, sd, exclusive)
     if not intmath.is_int(x.dtype):
         raise BadDtypeError(f"integer sums take integer input, got {x.dtype}")
-    wide = sd.itemsize == 8
     if not single_pass:
-        raise _unported("_wide_scan_block_kernel", 241) if wide else \
-            _unported("_scan_block_kernel", 148)
+        return _three_phase(x, sd, exclusive)
+    wide = sd.itemsize == 8
     work = torch.int64 if wide else torch.int32
     res = scan_carry(intmath.astype(x, work).contiguous(), exclusive)
     if wide:

@@ -75,6 +75,29 @@ def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _join64(hi, lo & _M32).view(dt)
 
 
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b mod 2^bits for two integer tensors of one dtype."""
+    dt = a.dtype
+    if dt.itemsize < 8:
+        return wrap(to_i64(a) + to_i64(b), dt)
+    sa, sb = signed_view(a), signed_view(b)
+    lo = (sa & _M32) + (sb & _M32)
+    hi = (sa >> 32) + (sb >> 32) + (lo >> 32)
+    return _join64(hi, lo & _M32).view(dt)
+
+
+def row_sums(x: torch.Tensor) -> torch.Tensor:
+    """Sums along dim 1 of a 2-D integer tensor mod 2^bits, in its dtype;
+    rows must stay shorter than 2^31."""
+    dt = x.dtype
+    if dt.itemsize < 8:
+        return wrap(to_i64(x).sum(1), dt)
+    s = signed_view(x)
+    lo = (s & _M32).sum(1)
+    hi = (s >> 32).sum(1) + (lo >> 32)
+    return _join64(hi, lo & _M32).view(dt)
+
+
 def cumsum(x: torch.Tensor, exclusive: bool = False) -> torch.Tensor:
     """Prefix sums of a 1-D integer tensor mod 2^bits, in its dtype; n must
     stay below 2^31."""

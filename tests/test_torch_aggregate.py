@@ -21,6 +21,18 @@ jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 jagg = pytest.importorskip("cl_ops_tpu.ops.exec.aggregate")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs several processes
+    side by side (pytest-xdist), and torch's own threads would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 3000        # < 4096: JAX's sparse search is exact here
 SPARSE_G = 40   # 40 * 64 < N: the searchsorted form
 DENSE_G = 64    # 64 * 64 >= N: the sorted-end-positions form

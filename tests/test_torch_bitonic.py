@@ -21,6 +21,18 @@ jnp = pytest.importorskip("jax.numpy")
 jbk = pytest.importorskip("cl_ops_tpu.ops.sort.bitonic_kernels")
 jps = pytest.importorskip("cl_ops_tpu.ops.exec.psort")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs several processes
+    side by side (pytest-xdist), and torch's own threads would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N, B, M = 8192, 1024, 2048
 BR, MR = B // 128, M // 128
 

@@ -16,6 +16,18 @@ jdt = pytest.importorskip("cl_ops_tpu.core.dtypes")
 jreg = pytest.importorskip("cl_ops_tpu.core.registry")
 jbits = pytest.importorskip("cl_ops_tpu.utils.bits")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs several processes
+    side by side (pytest-xdist), and torch's own threads would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NAMES = jdt.all_type_names()
 
 

@@ -3,7 +3,11 @@
 Small and odd geometries that chip_smoke.py does not reach: up to MAX_COLS
 columns, key prefixes shorter than the row, tied prefixes, single-block
 arrays and the k = 0 merge; scans of odd lengths, all ops and dtypes, with
-dense and nearly absent segment flags. Skips without CUDA. On a machine without JAX
+dense and nearly absent segment flags; the band probe with 1-2 limbs, 1-3
+value columns, empty and ragged build sides and several window starts; the
+block scans at lengths 0, 1 and ragged tails. Every CUDA call checks that
+the kernel's launch counter moved, so no CUDA tensor reaches a plain
+version. Skips without CUDA. On a machine without JAX
 run it with `python -m pytest --noconftest tests/test_torch_cuda.py`.
 """
 
@@ -12,8 +16,10 @@ import pytest
 import torch
 
 from cl_ops_tpu_torch import interop
+from cl_ops_tpu_torch.ops.exec import bandprobe as bp
 from cl_ops_tpu_torch.ops.exec import filter_compact, group_aggregate_cols
 from cl_ops_tpu_torch.ops.scan import kernels as sk
+from cl_ops_tpu_torch.ops.scan import scan_1d
 from cl_ops_tpu_torch.ops.scan import segmented as seg
 from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
 from cl_ops_tpu_torch.ops.sort import sort_new
@@ -192,3 +198,232 @@ def test_group_aggregate_cols_on_card(cuda):
                                   np.bincount(keys)[uniq])
     np.testing.assert_array_equal(interop.to_numpy(mn)[:len(uniq)],
                                   want_min[uniq])
+
+
+# --- the band probe (csrc/bandprobe.cu) ------------------------------------------
+
+def _band_case(rng, nb, n_limbs, n_vals, m, key_hi):
+    """Sorted build limbs (with duplicates), value columns and probes that
+    include i32 max and keys between and beyond the build's."""
+    keys = np.sort(rng.integers(-key_hi, key_hi, (nb, n_limbs)).astype(
+        np.int32).view([("", np.int32)] * n_limbs), axis=0).view(
+        np.int32).reshape(nb, n_limbs)
+    build = [torch.from_numpy(np.ascontiguousarray(keys[:, l]))
+             for l in range(n_limbs)]
+    vals = [torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, nb).astype(
+        np.int32)) for _ in range(n_vals)]
+    pk = rng.integers(-key_hi - 2, key_hi + 2, (m, n_limbs)).astype(np.int32)
+    if nb:
+        pk[: m // 4] = keys[rng.integers(0, nb, m // 4)]
+    pk[-1] = 2 ** 31 - 1
+    probes = [torch.from_numpy(np.ascontiguousarray(pk[:, l]))
+              for l in range(n_limbs)]
+    return build, vals, probes
+
+
+def _assert_band_equal(got, want):
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(g.cpu(), w)
+    for gs, ws in zip(got[2:4], want[2:4]):
+        for g, w in zip(gs, ws):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n_limbs", [1, 2])
+@pytest.mark.parametrize("n_vals", [1, 2, 3])
+@pytest.mark.parametrize("nb", [0, 1000, 3 * 4096 + 777, 70_001])
+def test_probe_band_matches_plain(cuda, n_limbs, n_vals, nb):
+    rng = np.random.default_rng(nb + 10 * n_limbs + n_vals)
+    m = 40_000
+    build, vals, probes = _band_case(rng, nb, n_limbs, n_vals, m,
+                                     2 ** 31 - 1 if n_limbs == 1 else 50)
+    # several window starts per call, in range and at the clamp
+    for block in (16384, 65536):
+        grid = -(-m // block)
+        top = max((nb + 4095) // 4096, 4) - 4
+        starts = torch.from_numpy(rng.integers(0, top + 1, grid).astype(
+            np.int32))
+        bp.reset_launches()
+        got = bp.probe_band([b.to(cuda) for b in build],
+                            [v.to(cuda) for v in vals],
+                            [p.to(cuda) for p in probes], starts.to(cuda),
+                            block)
+        torch.cuda.synchronize()
+        assert bp.launches["probe_band"] == 1
+        _assert_band_equal(got, bp.probe_band_plain(build, vals, probes,
+                                                    starts, block))
+
+
+@pytest.mark.parametrize("n_limbs", [1, 2])
+def test_band_entry_points_on_card(cuda, n_limbs):
+    rng = np.random.default_rng(3 + n_limbs)
+    nb = 3 * 4096 + 5
+    build, vals, probes = _band_case(rng, nb, n_limbs, 3, 70_000,
+                                     2 ** 31 - 1 if n_limbs == 1 else 9000)
+    on = [[t.to(cuda) for t in ts] for ts in (build, vals, probes)]
+    got = bp.probe_direct(tuple(on[0]), tuple(on[1]), tuple(on[2]))
+    want = bp.probe_direct(tuple(build), tuple(vals), tuple(probes))
+    _assert_band_equal(got, want)
+    order = np.lexsort([p.numpy() for p in probes[::-1]])
+    sp = [p[torch.from_numpy(order)] for p in probes]
+    got = bp.probe_banded_sorted(tuple(on[0]), tuple(on[1]),
+                                 tuple(p.to(cuda) for p in sp),
+                                 probe_rows=128)
+    want = bp.probe_banded_sorted(tuple(build), tuple(vals), tuple(sp),
+                                  probe_rows=128)
+    _assert_band_equal(got, want)
+    assert bool(got[4].cpu()) == bool(want[4])
+
+
+# --- the block scans (csrc/scan.cu scan_block_tiles) -------------------------------
+
+@pytest.mark.parametrize("n", [0, 1, 4097, (1 << 20) + 3])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.uint32,
+                                   torch.int64])
+@pytest.mark.parametrize("exclusive", [False, True])
+def test_scan_block_matches_plain(cuda, n, dtype, exclusive):
+    rng = np.random.default_rng(n + 3)
+    if dtype == torch.float32:
+        x = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32))
+    else:
+        info = np.iinfo(np.int64 if dtype == torch.int64 else np.int32)
+        x = torch.from_numpy(rng.integers(info.min, info.max, n,
+                                          endpoint=True, dtype=info.dtype))
+        if dtype == torch.uint32:
+            x = x.view(torch.uint32)
+    tiles = -(-n // sk.TILE)
+    sk.reset_launches()
+    if dtype in (torch.int32, torch.float32):
+        base = (torch.from_numpy(rng.uniform(-50, 50, tiles).astype(
+            np.float32)) if dtype == torch.float32 else torch.from_numpy(
+            rng.integers(-2 ** 31, 2 ** 31, tiles).astype(np.int32)))
+        got = sk.scan_block(x.to(cuda), base.to(cuda), exclusive).cpu()
+        want = sk.scan_block_plain(x, base, exclusive)
+        name = "scan_block"
+    else:
+        base = torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, tiles,
+                                             dtype=np.int64))
+        got = sk.scan_block_wide(x.to(cuda), base.to(cuda), exclusive).cpu()
+        want = sk.scan_block_wide_plain(x, base, exclusive)
+        name = "scan_block_wide"
+    torch.cuda.synchronize()
+    assert sk.launches[name] == (1 if n else 0)
+    if dtype == torch.float32:
+        # float32 sums of one tile in two orders, plus the base: 1e-5 of
+        # the running sum of |x| in the tile and |base|, plus 1e-6
+        tol = 1e-5 * (sk.scan_block_plain(x.abs(), base.abs(), False)) + 1e-6
+        assert bool(((got - want).abs() <= tol).all())
+    else:
+        assert torch.equal(got, want)
+
+
+def test_three_phase_scan_on_card(cuda):
+    rng = np.random.default_rng(8)
+    x = rng.integers(0, 2 ** 32, (1 << 20) + 17, dtype=np.uint32)
+    sk.reset_launches()
+    got = scan_1d(interop.to_torch(x, cuda), sum_dtype="ulong",
+                  exclusive=True, single_pass=False)
+    assert sk.launches["scan_block_wide"] == 1
+    want = np.cumsum(x.astype(np.uint64)) - x
+    np.testing.assert_array_equal(interop.to_numpy(got), want)
+    xi = x.view(np.int32)
+    got = scan_1d(interop.to_torch(xi, cuda), sum_dtype="int",
+                  exclusive=False, single_pass=False)
+    assert sk.launches["scan_block"] == 1
+    np.testing.assert_array_equal(
+        interop.to_numpy(got), np.cumsum(xi.astype(np.int64)).astype(np.int32))
+
+
+# --- the join, its expansion and the pipelines on the card ------------------------
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        if isinstance(g, tuple):
+            _same(g, w)
+        else:
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("impl", ["direct", "banded", "merge"])
+@pytest.mark.parametrize("unique_build", [True, False])
+def test_hash_join_on_card_matches_cpu(cuda, impl, unique_build):
+    from cl_ops_tpu_torch.ops.exec import hash_join
+    rng = np.random.default_rng(40)
+    nb = 12_000
+    bk_ = np.sort(rng.choice(1 << 20, nb, replace=unique_build)
+                  .astype(np.uint32))
+    bv = rng.integers(-2 ** 31, 2 ** 31, nb).astype(np.int32)
+    pk = np.concatenate([bk_[rng.integers(0, nb, 50_000)],
+                         rng.integers(0, 1 << 21, 30_000).astype(np.uint32)])
+    kw = dict(build_sorted=True, unique_build=unique_build, probe_impl=impl)
+    args = [interop.to_torch(a, "cpu") for a in (bk_, bv, pk)]
+    bp.reset_launches()
+    got = hash_join(*[a.to(cuda) for a in args], **kw)
+    torch.cuda.synchronize()
+    assert bp.launches["probe_band"] == (0 if impl == "merge" else
+                                         1 if unique_build else 2)
+    want = hash_join(*args, **kw)
+    hit = want[0] if unique_build else want[0] > 0
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu()[hit], want[1][hit])
+    if impl != "direct":
+        kw.update(sorted_output=True, defer_overflow=True,
+                  probe_cols=(args[2],))
+        got = hash_join(*[a.to(cuda) for a in args[:2]], args[2].to(cuda),
+                        **{**kw, "probe_cols": (args[2].to(cuda),)})
+        want = hash_join(*args, **kw)
+        assert not bool(got[-1].cpu()) and not bool(want[-1])
+        _same((got[0], got[2], got[3]), (want[0], want[2], want[3]))
+
+
+def test_expand_and_pipelines_on_card_match_cpu(cuda):
+    from cl_ops_tpu_torch.models import pipeline
+    from cl_ops_tpu_torch.ops.exec import hash_join_expand
+    rng = np.random.default_rng(41)
+    bk_ = np.sort(rng.integers(0, 5000, 20_000).astype(np.uint32))
+    bv = np.arange(20_000, dtype=np.int32)
+    pk = rng.integers(0, 5200, 30_000).astype(np.uint32)
+    args = [interop.to_torch(a, "cpu") for a in (bk_, bv, pk)]
+    bp.reset_launches()
+    got = hash_join_expand(*[a.to(cuda) for a in args], capacity=1 << 17,
+                           build_sorted=True)
+    torch.cuda.synchronize()
+    assert bp.launches["probe_band"] == 4  # two range passes, two expansion
+    want = hash_join_expand(*args, capacity=1 << 17, build_sorted=True)
+    _same(got, want)
+    bp.reset_launches()
+    _same(pipeline.rollup_query(1 << 16, dim_rows=1 << 12, defer=True,
+                                device=cuda),
+          pipeline.rollup_query(1 << 16, dim_rows=1 << 12, defer=True,
+                                device="cpu"))
+    _same(pipeline.star_query(1 << 16, dim_rows=1 << 12, num_cats=64,
+                              device=cuda),
+          pipeline.star_query(1 << 16, dim_rows=1 << 12, num_cats=64,
+                              device="cpu"))
+    assert bp.launches["probe_band"] == 2  # rollup's banded, star's direct
+
+
+@pytest.mark.parametrize("impl", ["blelloch", "lookback", "xla"])
+@pytest.mark.parametrize("elem", ["uint", "int", "float"])
+def test_scan_new_on_card_matches_cpu(cuda, impl, elem):
+    from cl_ops_tpu_torch.ops.scan import scan_new
+    rng = np.random.default_rng(42)
+    n = 3 * sk.TILE + 11
+    x = (rng.uniform(-1, 1, n).astype(np.float32) if elem == "float" else
+         rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32).view(
+             np.uint32 if elem == "uint" else np.int32))
+    s = scan_new(impl, elem_dtype=elem)
+    sk.reset_launches()
+    got = s.scan_with_host_data(x, device=cuda)
+    torch.cuda.synchronize()
+    want = s.scan_with_host_data(x, device="cpu")
+    if impl == "blelloch" or elem == "float" and impl != "xla":
+        kern = "scan_block_wide" if s.sum_dtype.itemsize == 8 else \
+            "scan_block"
+        assert sk.launches[kern] == 1
+    if elem == "float":
+        x64 = x.astype(np.float64)
+        tol = 1e-6 * np.cumsum(np.abs(x64)) + 1e-6
+        assert (np.abs(got - want) <= tol).all()
+    else:
+        np.testing.assert_array_equal(got, want)

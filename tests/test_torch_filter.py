@@ -14,6 +14,18 @@ jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 jflt = pytest.importorskip("cl_ops_tpu.ops.exec.filter")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs several processes
+    side by side (pytest-xdist), and torch's own threads would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 5000
 
 

@@ -12,6 +12,18 @@ jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 jkeys = pytest.importorskip("cl_ops_tpu.ops.sort.keys")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs several processes
+    side by side (pytest-xdist), and torch's own threads would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 INT_TYPES = ["char", "uchar", "short", "ushort", "int", "uint", "long",
              "ulong"]
 FLOAT_TYPES = ["half", "float", "double"]

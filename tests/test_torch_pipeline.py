@@ -1,7 +1,7 @@
 """The slices as a whole: generate_table, sort_pipeline and a filter over a
 generated table, cl_ops_tpu_torch against cl_ops_tpu (Pallas kernels in
-interpret mode), bit for bit; analytics_query and q1_query against
-cl_ops_tpu (use_pallas=False) and against numpy."""
+interpret mode), bit for bit; analytics_query, q1_query, star_query and
+rollup_query against cl_ops_tpu (use_pallas=False) and against numpy."""
 
 import numpy as np
 import pytest
@@ -17,6 +17,18 @@ jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 jpl = pytest.importorskip("cl_ops_tpu.models.pipeline")
 jflt = pytest.importorskip("cl_ops_tpu.ops.exec.filter")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs several processes
+    side by side (pytest-xdist), and torch's own threads would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SEEDS = [0, 7, 2 ** 33 + 5]
 
@@ -113,3 +125,63 @@ def test_q1_query_matches_reference_and_numpy(num_groups):
     np.testing.assert_array_equal(tabs[3], mx[uniq])
     np.testing.assert_array_equal(tabs[4], cnt)
     np.testing.assert_allclose(tabs[5], sp / cnt, rtol=2 ** -23)
+
+
+def test_star_query_matches_reference_and_numpy():
+    n, dim_rows, cats = 1 << 14, 1 << 10, 32
+    wc, wt = jpl.star_query(n, dim_rows=dim_rows, num_cats=cats, seed=3,
+                            threshold=512, use_pallas=False)
+    gc, gt = tpl.star_query(n, dim_rows=dim_rows, num_cats=cats, seed=3,
+                            threshold=512, device="cpu")
+    assert int(gc) == int(wc)
+    assert gt.dtype == torch.uint32
+    np.testing.assert_array_equal(interop.to_numpy(gt), np.asarray(wt))
+    keys, vals = (interop.to_numpy(t) for t in
+                  tpl.generate_table(n, 3, key_space=dim_rows, device="cpu"))
+    ids = torch.arange(dim_rows, dtype=torch.int32)
+    dim_cat = interop.widen_u32(threefry.random_bits(4, ids, 2)).numpy() % cats
+    keep = vals < 512
+    assert int(gc) == int(keep.sum())
+    want = np.zeros(cats, np.uint32)
+    np.add.at(want, dim_cat[keys[keep]], vals[keep])
+    np.testing.assert_array_equal(interop.to_numpy(gt), want)
+
+
+def _rollup_numpy(n, dim_rows, seed=0):
+    keys, meas = (interop.to_numpy(t) for t in tpl.generate_table(
+        n, seed, key_space=2 * dim_rows, device="cpu"))
+    uniq = np.unique(keys)
+    contrib = np.where(keys % 2 == 0, meas.astype(np.int64), 0)
+    return uniq, np.bincount(keys, weights=contrib,
+                             minlength=2 * dim_rows)[uniq]
+
+
+def test_rollup_query_matches_reference_and_numpy():
+    n, dim_rows = 1 << 13, 1 << 9
+    wk, wt, wc = jpl.rollup_query(n, dim_rows=dim_rows, use_pallas=False)
+    gk, gt, gc, ovf = tpl.rollup_query(n, dim_rows=dim_rows, defer=True,
+                                       device="cpu")
+    assert not bool(ovf) and int(gc) == int(wc)
+    k = int(gc)
+    np.testing.assert_array_equal(gk.numpy()[:k], np.asarray(wk)[:k])
+    np.testing.assert_array_equal(gt.numpy()[:k], np.asarray(wt)[:k])
+    uniq, sums = _rollup_numpy(n, dim_rows)
+    assert k == len(uniq)
+    np.testing.assert_array_equal(gk.numpy()[:k], uniq)
+    np.testing.assert_array_equal(gt.numpy()[:k], sums)
+
+
+def test_rollup_query_overflow_reruns_through_merge():
+    """A dimension of two windows that one probe block spans: the deferred
+    form returns the flag set, and the default form re-runs through the
+    merge probe and stays exact."""
+    n, dim_rows = 1 << 13, 1 << 15
+    *_, ovf = tpl.rollup_query(n, dim_rows=dim_rows, defer=True,
+                               device="cpu")
+    assert bool(ovf)
+    gk, gt, gc = tpl.rollup_query(n, dim_rows=dim_rows, device="cpu")
+    uniq, sums = _rollup_numpy(n, dim_rows)
+    k = int(gc)
+    assert k == len(uniq)
+    np.testing.assert_array_equal(gk.numpy()[:k], uniq)
+    np.testing.assert_array_equal(gt.numpy()[:k], sums)

@@ -21,6 +21,18 @@ jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 jsort = pytest.importorskip("cl_ops_tpu.ops.sort")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs several processes
+    side by side (pytest-xdist), and torch's own threads would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 JOPTS = "block_rows=8,single_launch=0"
 TOPTS = "block_elems=1024,merge_elems=4096"
 ALL_TYPES = ["char", "uchar", "short", "ushort", "int", "uint", "long",

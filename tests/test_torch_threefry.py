@@ -10,6 +10,18 @@ from cl_ops_tpu_torch.ops.rng import threefry as tf
 jax = pytest.importorskip("jax")
 jtf = pytest.importorskip("cl_ops_tpu.ops.rng.threefry")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs several processes
+    side by side (pytest-xdist), and torch's own threads would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEEDS = [0, 1, 42, 2 ** 31 + 3, 2 ** 32 + 7, 2 ** 64 - 1, -5]
 
 
