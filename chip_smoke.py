@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of cl_ops_tpu_torch on one CUDA card.
 
-Builds the CUDA kernels from `cl_ops_tpu_torch/csrc/` (bitonic.cu, scan.cu
-and bandprobe.cu, one nvcc per source, started together), holds each of the
-ten kernels against its plain PyTorch version at the main path's shapes,
-drives the main path (abitonic sort of 16M u32 keys, KV sort of 16M u64
-keys with u32 values, sort_pipeline at 16M, filter_compact over 64M rows at
-10% selectivity, GROUP BY of 256M rows into 1M groups, analytics_query over
-64M rows, q1_query over 16M rows into 64K groups, a GROUP BY of 16M int64
-measures, the join probe of 256M rows against 16M and of 16M against 1M in
-three forms, hash_join_expand of 16M probes x 4 matches, rollup_query 16M x
-1M, star_query over 16M rows, and scan_new("blelloch") over 64M uint32 and
-float32 values), checks every result against torch, numpy or a formula,
-and times the kernels and the phases with CUDA events. Run from the
-repository root:
+Builds the CUDA kernels from `cl_ops_tpu_torch/csrc/` (bitonic.cu, scan.cu,
+bandprobe.cu and radix.cu, one nvcc per source, started together), holds
+each of the twelve kernels against its plain PyTorch version at the main
+path's shapes, drives the main path (abitonic sort of 16M u32 keys, KV sort
+of 16M u64 keys with u32 values, sort_pipeline at 16M, filter_compact over
+64M rows at 10% selectivity, GROUP BY of 256M rows into 1M groups,
+analytics_query over 64M rows, q1_query over 16M rows into 64K groups, a
+GROUP BY of 16M int64 measures, the join probe of 256M rows against 16M and
+of 16M against 1M in three forms, hash_join_expand of 16M probes x 4
+matches, rollup_query 16M x 1M, star_query over 16M rows, scan_new
+("blelloch") over 64M uint32 and float32 values, satradix KV sorts of 16M
+u64 keys with u32 values at radix 16 and 256, the vendor sorter "xla" on
+the same, satradix and sbitonic of 16M u32 keys, abitonic single_launch=1
+at 1M and autotune=1 at 16M, and gselect of 64K keys with values), checks
+every result against torch, numpy or a formula, and times the kernels and
+the phases with CUDA events. Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -27,6 +30,7 @@ failure raises and exits non-zero; without CUDA it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -88,17 +92,17 @@ def cuda_ms(fn, reps, before=None):
 
 
 KERNEL_GROUPS = (("bitonic", ("block_sort", "multi_stage", "pair_cross",
-                              "block_merge")),
+                              "block_merge", "whole_sort")),
                  ("scan", ("scan_tiles", "scan_block_tiles")),
-                 ("join", ("probe_band",)))
+                 ("join", ("probe_band",)),
+                 ("radix", ("rank_hist",)))
 
 
 def device_breakdown(cell, fn):
     """Trace one fn() with torch.profiler and print the device time by
-    kernel group (the port's bitonic, scan and band-probe kernels, torch's
-    own kernels,
-    copies and fills), the call's time on the host clock and the device's
-    idle share of it."""
+    kernel group (the port's bitonic, scan, band-probe and rank_hist
+    kernels, torch's own kernels, copies and fills), the call's time on the
+    host clock and the device's idle share of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -132,6 +136,26 @@ def device_breakdown(cell, fn):
                                       key=lambda kv: -kv[1])[:8])}))
 
 
+def kernel_record(name, source, err, ms, plain_ms, nbytes, ops, library_ms,
+                  shape, **extra):
+    """One kernel's line: its bound is the larger of nbytes over the memory
+    rate and ops over the 32-bit rate."""
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    ops_ms = ops / PEAK_OPS_S * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, **extra, "shape": shape}
+
+
+def max_abs_err(got, want):
+    """Largest |got - want| over pairs of integer tensors."""
+    import torch
+    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               if g.numel() else 0 for g, w in zip(got, want))
+
+
 def scan_record(name, n, kern, plain, library, nbytes, shape, tol=None):
     """Run a scan kernel and plain version on the same inputs, compare (exact,
     or within tol(got, want) elementwise), time both and the library
@@ -152,17 +176,10 @@ def scan_record(name, n, kern, plain, library, nbytes, shape, tol=None):
         raise AssertionError(f"{name} {shape}: kernel differs from its "
                              f"plain version (max abs err {err})")
     del got, want
-    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-    ops_ms = n / PEAK_OPS_S * 1e3  # one add or compare per element
-    return {"name": name, "route": "cuda",
-            "source": "cl_ops_tpu_torch/csrc/scan.cu",
-            "replaces": REPLACES[name], "launches": 0,
-            "max_abs_err": err, "ms": cuda_ms(kern, 7),
-            "plain_ms": cuda_ms(plain, 3),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": cuda_ms(library, 7) if library else None,
-            "shape": shape}
+    # one add or compare per element
+    return kernel_record(name, "cl_ops_tpu_torch/csrc/scan.cu", err,
+                         cuda_ms(kern, 7), cuda_ms(plain, 3), nbytes, n,
+                         cuda_ms(library, 7) if library else None, shape)
 
 
 def band_record(shape, build, vals, probes, block, windowed):
@@ -192,11 +209,8 @@ def band_record(shape, build, vals, probes, block, windowed):
     def plain():
         return bp.probe_band_plain(build, vals, probes, starts, block)
     got, want = kern(), plain()
-    err = 0
-    for g, w in zip((got[0], got[1], *got[2], *got[3]),
-                    (want[0], want[1], *want[2], *want[3])):
-        err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs()
-                           .max()))
+    err = max_abs_err((got[0], got[1], *got[2], *got[3]),
+                      (want[0], want[1], *want[2], *want[3]))
     if err:
         raise AssertionError(f"probe_band {shape}: kernel differs from its "
                              f"plain version (max abs err {err})")
@@ -208,20 +222,12 @@ def band_record(shape, build, vals, probes, block, windowed):
     # column); the model also counts the window loads of every probe block
     nbytes = m * nl * 4 + m * (5 + 8 * nv) + nb * (nl + nv) * 4
     ops = 2 * nl * m * bp.WINDOW.bit_length()  # compare + select per step
-    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-    ops_ms = ops / PEAK_OPS_S * 1e3
-    return {"name": "probe_band", "route": "cuda",
-            "source": "cl_ops_tpu_torch/csrc/bandprobe.cu",
-            "replaces": REPLACES["probe_band"], "launches": 0,
-            "max_abs_err": err, "ms": cuda_ms(kern, 7),
-            "plain_ms": cuda_ms(plain, 3),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": cuda_ms(lambda: torch.searchsorted(
-                lib_b, lib_p, right=True), 7),
-            "model_bytes": bp.band_pass_traffic_bytes(m, nl, nb,
-                                                      block // bp.ROW, nv),
-            "shape": shape}
+    return kernel_record(
+        "probe_band", "cl_ops_tpu_torch/csrc/bandprobe.cu", err,
+        cuda_ms(kern, 7), cuda_ms(plain, 3), nbytes, ops,
+        cuda_ms(lambda: torch.searchsorted(lib_b, lib_p, right=True), 7),
+        shape, model_bytes=bp.band_pass_traffic_bytes(m, nl, nb,
+                                                      block // bp.ROW, nv))
 
 
 def band_kernel_records(dev):
@@ -300,6 +306,18 @@ def block_scan_records(dev, n):
             f"n={n} uint32 -> 64-bit sums exclusive")}
 
 
+def report(cell, fn, reps, model_bytes, launches, rows, **extra):
+    """Time a cell's call with CUDA events, trace it once, and print its
+    line: ms, Mrows/s, model bytes and their bound, launches."""
+    ms = cuda_ms(fn, reps)
+    device_breakdown(cell, fn)
+    print(json.dumps({"cell": cell, "ms": ms, "mrows_s": rows / ms / 1e3,
+                      "model_bytes": model_bytes,
+                      "bound_ms": model_bytes / PEAK_BYTES_S * 1e3,
+                      "launches": launches, **extra}), flush=True)
+    return ms
+
+
 def join_cells(dev, reset, count):
     """The join and scan_new cells: each driven once between reset() and
     count(), checked against numpy or a formula that needs no join, timed
@@ -323,15 +341,6 @@ def join_cells(dev, reset, count):
 
     def u32(t):
         return interop.widen_u32(t)
-
-    def report(cell, fn, reps, model_bytes, launches, rows, **extra):
-        ms = cuda_ms(fn, reps)
-        device_breakdown(cell, fn)
-        print(json.dumps({"cell": cell, "ms": ms,
-                          "mrows_s": rows / ms / 1e3,
-                          "model_bytes": model_bytes,
-                          "bound_ms": model_bytes / PEAK_BYTES_S * 1e3,
-                          "launches": launches, **extra}), flush=True)
 
     def dim_and_probes(m, nb, seed_dim, seed_probe):
         """bench_all.py configs 5 and 12: a shuffled arange dimension with
@@ -543,6 +552,261 @@ def join_cells(dev, reset, count):
             del dx, hx
 
 
+def sort_family_kernel_records(dev):
+    """rank_hist over 16M digits at radix 16 and 256, pair_cross at J = 1,
+    16, 32 and 1024 over 16M u32 keys, and whole_sort at 1M and at its
+    capacity (2^21 keys), each against its plain version bit for bit."""
+    import torch
+    from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
+    from cl_ops_tpu_torch.ops.sort import radix_kernels as rk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    n = SORT_N
+    recs = {}
+    for radix in (16, 256):
+        d = torch.randint(0, radix, (n,), dtype=torch.int32, device=dev,
+                          generator=gen)
+        block = rk.BLOCK_ELEMS
+        got = rk.rank_hist(d, radix)
+        want = rk.rank_hist_plain(d, radix, block)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"rank_hist radix {radix}: kernel differs "
+                                 f"from its plain version ({err})")
+        n_blocks = got[1].shape[0]
+        del got, want
+        # read each digit, write its rank and the histogram; one count per
+        # digit
+        recs[f"rank_hist {radix}"] = kernel_record(
+            "rank_hist", "cl_ops_tpu_torch/csrc/radix.cu", err,
+            cuda_ms(lambda: rk.rank_hist(d, radix), 7),
+            cuda_ms(lambda: rk.rank_hist_plain(d, radix, block), 3),
+            8 * n + 4 * n_blocks * radix, n, None,
+            f"n={n} radix={radix} tile={block}")
+        del d
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), dtype=torch.int32,
+                      device=dev, generator=gen)
+    for j in (1, 16, 32, 1024):
+        work, ref = [x.clone()], [x.clone()]
+        bk.pair_cross_(work, 2 * j, j)
+        bk.pair_cross_plain(ref, 2 * j, j, 1)
+        torch.cuda.synchronize()
+        err = max_abs_err(work, ref)
+        if err:
+            raise AssertionError(f"pair_cross J={j}: kernel differs from its "
+                                 f"plain version ({err})")
+
+        def restore(work=work):
+            work[0].copy_(x)
+        recs[f"pair_cross {j}"] = kernel_record(
+            "pair_cross", "cl_ops_tpu_torch/csrc/bitonic.cu", err,
+            cuda_ms(lambda: bk.pair_cross_(work, 2 * j, j), 7, restore),
+            cuda_ms(lambda: bk.pair_cross_plain(work, 2 * j, j, 1), 3,
+                    restore), 2 * 4 * n, 2 * (n // 2), None,
+            f"n={n} cols=1 K={2 * j} J={j}")
+        del work, ref
+    for wn in (1 << 20, bk.WHOLE_MAX):
+        xw = x[:wn].clone()
+        work, ref = [xw.clone()], [xw.clone()]
+        bk.whole_sort_(work)
+        bk.whole_sort_plain(ref, 1)
+        torch.cuda.synchronize()
+        err = max_abs_err(work, ref)
+        if err or not torch.equal(work[0], torch.sort(xw).values):
+            raise AssertionError(f"whole_sort n={wn}: kernel differs from its "
+                                 f"plain version ({err}) or from torch.sort")
+
+        def restore(work=work, xw=xw):
+            work[0].copy_(xw)
+        recs[f"whole_sort {wn}"] = kernel_record(
+            "whole_sort", "cl_ops_tpu_torch/csrc/bitonic.cu", err,
+            cuda_ms(lambda: bk.whole_sort_(work), 7, restore),
+            cuda_ms(lambda: bk.whole_sort_plain(work, 1), 3, restore),
+            2 * 4 * wn, 2 * (wn // 2) * bk.sbitonic_steps(wn),
+            cuda_ms(lambda: torch.sort(xw), 7),
+            f"n={wn} cols=1 slice={bk.whole_slice(wn, 1)} "
+            f"blocks={wn // bk.whole_slice(wn, 1)}")
+        del work, ref, xw
+    return recs
+
+
+def sort_family_cells(dev, reset, count):
+    """The satradix, sbitonic, single-launch, autotune, gselect and xla
+    cells: each driven once between reset() and count(), checked against
+    numpy or torch.sort, timed with CUDA events and traced once."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cl_ops_tpu_torch import interop
+    from cl_ops_tpu_torch.ops.sort import autotune
+    from cl_ops_tpu_torch.ops.sort import bitonic as bt
+    from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
+    from cl_ops_tpu_torch.ops.sort import keys as keymod
+    from cl_ops_tpu_torch.ops.sort import satradix as sr
+    from cl_ops_tpu_torch.ops.sort import sort_new
+
+    def check(name, ok):
+        if not ok:
+            raise AssertionError(name)
+
+    def drive(tag, fn):
+        reset()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, count(tag)
+
+    rng = np.random.default_rng(SEED + 9)
+    n = SORT_N
+    # BASELINE config 2: 16M u64 keys, u32 values = the row index
+    h64 = rng.integers(0, 2 ** 64, n, dtype=np.uint64)
+    want_keys, want_vals = np.sort(h64), np.argsort(h64, kind="stable")
+    d64 = interop.to_torch(h64, dev)
+    idx32 = torch.arange(n, dtype=torch.int32, device=dev)
+    idx = idx32.view(torch.uint32)
+    # the library sorts the keys' signed view with the sign bit flipped
+    # (and gathers int32 values: CUDA torch does not index uint32 tensors)
+    flipped = d64.view(torch.int64) ^ -(1 << 63)
+
+    def lib_kv():
+        order = torch.sort(flipped, stable=True).indices
+        return flipped[order], idx32[order]
+    lib_kv_ms = cuda_ms(lib_kv, 5)
+
+    def check_kv(tag, out):
+        k, v = (interop.to_numpy(t) for t in out)
+        check(f"{tag}: keys equal np.sort", np.array_equal(k, want_keys))
+        check(f"{tag}: values equal the stable argsort",
+              np.array_equal(v.astype(np.int64), want_vals))
+
+    for radix in (16, 256):
+        tag = f"satradix KV {n} u64 + u32 radix {radix}"
+        with phase(tag):
+            s = sort_new("satradix", f"radix={radix}", elem_dtype="ulong")
+
+            def kv(s=s):
+                return s.sort_with_device_data(d64, idx)
+            out, launches = drive(tag, kv)
+            check_kv(tag, out)
+            del out
+            passes = 2 * len(sr.pass_shifts(radix))
+            report(tag, kv, 3, sr.satradix_traffic_bytes(n, 2, True, radix),
+                   launches, n, library_ms=lib_kv_ms, passes=passes,
+                   pass_bound_ms=passes * 24 * n / PEAK_BYTES_S * 1e3)
+
+    tag = f"xla KV {n} u64 + u32"
+    with phase(tag):
+        s = sort_new("xla", elem_dtype="ulong")
+
+        def xla_kv():
+            return s.sort_with_device_data(d64, idx)
+        out, launches = drive(tag, xla_kv)
+        check_kv(tag, out)
+        del out
+        report(tag, xla_kv, 3, 2 * 12 * n, launches, n)
+    del d64, idx, idx32, flipped, h64, want_keys, want_vals
+
+    h32 = rng.integers(0, 2 ** 32, n, dtype=np.uint32)
+    d32 = interop.to_torch(h32, dev)
+    limb = keymod.to_limbs(d32)[0]
+    want32 = torch.sort(limb).values
+    lib32_ms = cuda_ms(lambda: torch.sort(limb), 5)
+
+    def check32(tag, out, want=want32):
+        check(f"{tag}: equals torch.sort",
+              torch.equal(keymod.to_limbs(out)[0], want))
+
+    tag = f"satradix {n} u32"
+    with phase(tag):
+        s = sort_new("satradix")
+
+        def radix32():
+            return s.sort_with_device_data(d32)
+        out, launches = drive(tag, radix32)
+        check32(tag, out)
+        report(tag, radix32, 5, sr.satradix_traffic_bytes(n, 1, False),
+               launches, n, library_ms=lib32_ms,
+               pass_bound_ms=8 * 8 * n / PEAK_BYTES_S * 1e3)
+
+    tag = f"sbitonic {n} u32"
+    with phase(tag):
+        s = sort_new("sbitonic")
+
+        def steps():
+            return s.sort_with_device_data(d32)
+        out, launches = drive(tag, steps)
+        check32(tag, out)
+        check(f"{tag}: {bk.sbitonic_steps(n)} pair_cross launches",
+              launches["pair_cross"] == bk.sbitonic_steps(n))
+        report(tag, steps, 3, bt.sbitonic_traffic_bytes(n, 1), launches, n,
+               library_ms=lib32_ms)
+
+    n1 = 1 << 20  # BASELINE config 1
+    tag = f"abitonic single_launch=1 {n1} u32"
+    with phase(tag):
+        d1 = d32[:n1].clone()
+        limb1 = keymod.to_limbs(d1)[0]
+        s = sort_new("abitonic", "single_launch=1")
+        fused = sort_new("abitonic").sort_with_device_data(d1)
+
+        def single():
+            return s.sort_with_device_data(d1)
+        out, launches = drive(tag, single)
+        check32(tag, out, torch.sort(limb1).values)
+        check(f"{tag}: equals the fused schedule bit for bit",
+              torch.equal(out.view(torch.int32), fused.view(torch.int32)))
+        report(tag, single, 7, bt.abitonic_traffic_bytes(
+                   n1, 1, {"single_launch": "1"}), launches, n1,
+               library_ms=cuda_ms(lambda: torch.sort(limb1), 7),
+               fused_ms=cuda_ms(lambda: sort_new("abitonic")
+                                .sort_with_device_data(d1), 7))
+        del d1, limb1, fused, out
+
+    tag = f"abitonic autotune=1 {n} u32"
+    with phase(tag):
+        cache_dir = tempfile.mkdtemp()
+        saved = os.environ.get(autotune.CACHE_ENV)
+        os.environ[autotune.CACHE_ENV] = os.path.join(cache_dir, "tune.json")
+        autotune._mem_cache.clear()
+        s = sort_new("abitonic", "autotune=1")
+        t = time.perf_counter()
+        out, launches = drive(tag, lambda: s.sort_with_device_data(d32))
+        sweep_s = time.perf_counter() - t
+        check32(tag, out)
+        geo = autotune.tune_geometry(n, 1, dev)
+        report(tag, lambda: s.sort_with_device_data(d32), 5,
+               bt.abitonic_traffic_bytes(n, 1, {
+                   "block_elems": geo[0], "merge_elems": geo[1],
+                   "single_launch": str(int(geo[2]))}), launches, n,
+               geometry=geo, candidates=len(autotune.candidate_geometries(
+                   n, 1)), sweep_s=sweep_s, library_ms=lib32_ms)
+        if saved is None:
+            del os.environ[autotune.CACHE_ENV]
+        else:
+            os.environ[autotune.CACHE_ENV] = saved
+        shutil.rmtree(cache_dir)
+    del d32, limb, want32, out
+
+    ng = 1 << 16  # a selection sort: O(n^2) compares
+    tag = f"gselect {ng} u32 + u32"
+    with phase(tag):
+        hg = h32[:ng]
+        dg = interop.to_torch(hg, dev)
+        vg = torch.arange(ng, dtype=torch.int32, device=dev)
+        s = sort_new("gselect")
+
+        def gsel():
+            return s.sort_with_device_data(dg, vg)
+        out, launches = drive(tag, gsel)
+        k, v = (interop.to_numpy(t) for t in out)
+        check(f"{tag}: keys equal np.sort", np.array_equal(k, np.sort(hg)))
+        check(f"{tag}: values equal the stable argsort",
+              np.array_equal(v, np.argsort(hg, kind="stable")))
+        report(tag, gsel, 3, 2 * 8 * ng, launches, ng, compares=ng * ng)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -563,6 +827,7 @@ def main() -> int:
     from cl_ops_tpu_torch.ops.sort import bitonic as bt
     from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
     from cl_ops_tpu_torch.ops.sort import keys as keymod
+    from cl_ops_tpu_torch.ops.sort import radix_kernels as rk
     from cl_ops_tpu_torch.ops.sort import sort_new
 
     dev = torch.device("cuda")
@@ -577,11 +842,12 @@ def main() -> int:
         print("torch", torch.__version__, "cuda", torch.version.cuda,
               "device", torch.cuda.get_device_name(0))
         t = time.perf_counter()
-        with ThreadPoolExecutor(3) as pool:  # one nvcc per source
-            for f in [pool.submit(m.load_kernels) for m in (bk, sk, bp)]:
+        with ThreadPoolExecutor(4) as pool:  # one nvcc per source
+            for f in [pool.submit(m.load_kernels) for m in (bk, sk, bp, rk)]:
                 f.result()
         print(f"kernel build+load: {time.perf_counter() - t:.3f} s")
-        for line in (bk.build_log + sk.build_log + bp.build_log).splitlines():
+        for line in (bk.build_log + sk.build_log + bp.build_log
+                     + rk.build_log).splitlines():
             if "registers" in line or "Compiling entry" in line:
                 print("ptxas:", line.strip())
 
@@ -605,7 +871,7 @@ def main() -> int:
         }
         recs = []
         state = [c.clone() for c in cols]
-        for name in bk.KERNELS:
+        for name in bk.FUSED:
             kern, plain, args = calls[name]
             src = [c.clone() for c in state]
             work = [c.clone() for c in state]
@@ -613,8 +879,7 @@ def main() -> int:
             kern(work, *args, num_keys=num_keys)
             plain(ref, *args, num_keys)
             torch.cuda.synchronize()
-            err = max(int((w.to(torch.int64) - r.to(torch.int64)).abs().max())
-                      for w, r in zip(work, ref))
+            err = max_abs_err(work, ref)
             if err != 0:
                 raise AssertionError(f"{name}: kernel differs from its plain "
                                      f"version (max abs err {err})")
@@ -628,20 +893,11 @@ def main() -> int:
                                restore)
             lib = library.get(name)
             lib_ms = cuda_ms(lib, 5) if lib is not None else None
-            nbytes = 2 * nc * 4 * n
-            ops = 2 * num_keys * (n // 2) * steps[name]
-            bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-            ops_ms = ops / PEAK_OPS_S * 1e3
-            recs.append({
-                "name": name, "route": "cuda",
-                "source": "cl_ops_tpu_torch/csrc/bitonic.cu",
-                "replaces": REPLACES[name], "launches": 0,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": lib_ms,
-                "shape": f"n={n} cols={nc} num_keys={num_keys} "
-                         f"block={b} merge={m}"})
+            recs.append(kernel_record(
+                name, "cl_ops_tpu_torch/csrc/bitonic.cu", err, ms, plain_ms,
+                2 * nc * 4 * n, 2 * num_keys * (n // 2) * steps[name],
+                lib_ms, f"n={n} cols={nc} num_keys={num_keys} "
+                        f"block={b} merge={m}"))
             state = ref  # the next kernel's input (kernel and plain agree)
         return recs
 
@@ -714,12 +970,19 @@ def main() -> int:
         for r in band_recs.values():
             print("kernel", json.dumps(r))
 
-    all_kernels = bk.KERNELS + sk.KERNELS + seg.KERNELS + bp.KERNELS
-    counters = (bk.launches, sk.launches, seg.launches, bp.launches)
+    with phase("sort family kernels vs plain"):
+        family_recs = sort_family_kernel_records(dev)
+        for r in family_recs.values():
+            print("kernel", json.dumps(r))
+
+    all_kernels = (bk.KERNELS + sk.KERNELS + seg.KERNELS + bp.KERNELS
+                   + rk.KERNELS)
+    counters = (bk.launches, sk.launches, seg.launches, bp.launches,
+                rk.launches)
     main_launches = dict.fromkeys(all_kernels, 0)
 
     def reset():
-        for m in (bk, sk, seg, bp):
+        for m in (bk, sk, seg, bp, rk):
             m.reset_launches()
 
     def count(name):
@@ -982,6 +1245,7 @@ def main() -> int:
                           "launches": w_launches}))
 
     join_cells(dev, reset, count)
+    sort_family_cells(dev, reset, count)
 
     for name, n in main_launches.items():
         if n <= 0:
@@ -992,7 +1256,11 @@ def main() -> int:
                           scan_recs["seg_scan_carry max int32"],
                           scan_recs["scan_block uint32"],
                           scan_recs["scan_block_wide"],
-                          band_recs[f"{JOIN_BIG[0]}x{JOIN_BIG[1]}"]]
+                          band_recs[f"{JOIN_BIG[0]}x{JOIN_BIG[1]}"],
+                          family_recs["whole_sort 1048576"],
+                          family_recs["rank_hist 16"]]
+    u32_recs[2]["ms_by_distance"] = {
+        j: family_recs[f"pair_cross {j}"]["ms"] for j in (1, 16, 32, 1024)}
     for r in summary:
         r["launches"] = main_launches[r["name"]]
     print(f"total: {time.perf_counter() - t_start:.3f} s")
@@ -1007,7 +1275,7 @@ def main() -> int:
 REPLACES = {
     "block_sort": "cl_ops_tpu/ops/sort/bitonic_kernels.py:254",
     "multi_stage": "cl_ops_tpu/ops/sort/bitonic_kernels.py:601",
-    "pair_cross": "cl_ops_tpu/ops/sort/bitonic_kernels.py:472",
+    "pair_cross": "cl_ops_tpu/ops/sort/bitonic_kernels.py:472, :292, :318",
     "block_merge": "cl_ops_tpu/ops/sort/bitonic_kernels.py:271",
     "scan_carry": "cl_ops_tpu/ops/scan/kernels.py:182",
     "scan_carry_wide": "cl_ops_tpu/ops/scan/kernels.py:208",
@@ -1015,6 +1283,8 @@ REPLACES = {
     "scan_block": "cl_ops_tpu/ops/scan/kernels.py:148",
     "scan_block_wide": "cl_ops_tpu/ops/scan/kernels.py:241",
     "probe_band": "cl_ops_tpu/ops/exec/bandprobe.py:87",
+    "whole_sort": "cl_ops_tpu/ops/sort/bitonic_kernels.py:567",
+    "rank_hist": "cl_ops_tpu/ops/sort/satradix.py:62",
 }
 
 # Device-memory bytes per row of the GROUP BY cell outside the sort, counted

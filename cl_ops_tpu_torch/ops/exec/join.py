@@ -379,23 +379,12 @@ def _empty_probe(probe_keys, vdt, unique_build: bool, sorted_output: bool,
 
 
 @functools.lru_cache(maxsize=None)
-def _abitonic(dtype: torch.dtype):
+def _default_build_sorter(dtype: torch.dtype):
+    """The JAX package's default build sort: abitonic for 4-byte keys, else
+    the stable vendor sorter "xla"."""
     from cl_ops_tpu_torch.ops.sort import sort_new
-    return sort_new("abitonic", elem_dtype=dtype)
-
-
-def _sort_build(keys: torch.Tensor, vals: torch.Tensor):
-    """The default build sort: 4-byte keys through the abitonic Sorter
-    (4-byte values as its payload), as the JAX package's default; other
-    keys stably, by (limbs, position) through sort_i32_cols and a gather,
-    as JAX's stable XLA sorter orders them."""
-    if keys.dtype.itemsize == 4:
-        return _abitonic(keys.dtype).sort_with_device_data(keys, vals)
-    limbs = _limbs(keys)
-    out = psort.sort_i32_cols((*limbs, _arange(keys.numel(), keys.device)),
-                              num_keys=len(limbs) + 1, pad_safe=True)
-    perm = out[-1].to(torch.int64)
-    return interop.take(keys, perm), interop.take(vals, perm)
+    return sort_new("abitonic" if dtype.itemsize == 4 else "xla",
+                    elem_dtype=dtype)
 
 
 def hash_join(build_keys, build_vals, probe_keys, *, build_sorted=False,
@@ -412,7 +401,7 @@ def hash_join(build_keys, build_vals, probe_keys, *, build_sorted=False,
       probe_keys: fact-side keys to look up (the build keys' dtype).
       build_sorted: set True when build_keys are already ascending.
       sorter: a Sorter for the build side (default: abitonic for 4-byte
-        keys, else a stable sort by (limbs, position)).
+        keys, else the stable vendor sorter "xla", as in the JAX package).
       unique_build: build keys are unique (dimension-table case).
       join_type: "inner" | "semi" | "anti".
       probe_impl: "auto" | "direct" | "banded" | "merge" (module docstring).
@@ -447,10 +436,9 @@ def hash_join(build_keys, build_vals, probe_keys, *, build_sorted=False,
     _probe_strategy(build_keys.numel(), probe_impl, sorted_output)
     if not build_sorted:
         if sorter is None:
-            build_keys, build_vals = _sort_build(build_keys, build_vals)
-        else:
-            build_keys, build_vals = sorter.sort_with_device_data(
-                build_keys, build_vals)
+            sorter = _default_build_sorter(build_keys.dtype)
+        build_keys, build_vals = sorter.sort_with_device_data(build_keys,
+                                                              build_vals)
     pc_enc, pc_spec = (psort.cols_to_i32(tuple(probe_cols))
                        if probe_cols else ((), ()))
     args = (probe_impl, sorted_output, pc_enc, defer_overflow)
@@ -620,10 +608,9 @@ def hash_join_expand(build_keys, build_vals, probe_keys, *, capacity: int,
                 vals)
     if not build_sorted:
         if sorter is None:
-            build_keys, build_vals = _sort_build(build_keys, build_vals)
-        else:
-            build_keys, build_vals = sorter.sort_with_device_data(
-                build_keys, build_vals)
+            sorter = _default_build_sorter(build_keys.dtype)
+        build_keys, build_vals = sorter.sort_with_device_data(build_keys,
+                                                              build_vals)
     bl = _limbs(build_keys)
     vcols = _val_cols(build_vals)
     spos, ub, lb = _ranges_sorted(bl, vcols, _limbs(probe_keys), probe_impl)

@@ -11,6 +11,8 @@ unique (e.g. by mixing in the row position) so the rest are inert payload.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from cl_ops_tpu_torch.ops.sort import bitonic as _bt
@@ -113,7 +115,10 @@ def sort_i32_cols(cols, *, num_keys: int | None = None,
     column in it) pass pad_safe=True; otherwise padding falls back to the
     total comparator.
 
-    block_elems and merge_elems override the geometry (bitonic.py).
+    block_elems and merge_elems override the geometry (bitonic.py). With
+    CL_OPS_PSORT_AUTOTUNE=1 in the environment the rest of it comes from
+    the on-card tuner (autotune.py, cached per device, length and column
+    count), the single-launch sort included; CPU tensors are not tuned.
     Returns the reordered columns (same dtypes and lengths).
     """
     n = cols[0].shape[0]
@@ -123,8 +128,12 @@ def sort_i32_cols(cols, *, num_keys: int | None = None,
     if num_keys is not None and (num_keys >= len(cols) or
                                  (padded != n and not pad_safe)):
         num_keys = None  # total comparator: no payload, or pad-tie risk
-    opts = {k: v for k, v in (("block_elems", block_elems),
-                              ("merge_elems", merge_elems)) if v is not None}
-    b, m = _bt.resolve_geometry(padded, len(bufs), opts)
-    bk.bitonic_sort_2d(bufs, block_elems=b, merge_elems=m, num_keys=num_keys)
+    opts = {k: str(v) for k, v in (("block_elems", block_elems),
+                                   ("merge_elems", merge_elems))
+            if v is not None}
+    if os.environ.get("CL_OPS_PSORT_AUTOTUNE") == "1":
+        opts["autotune"] = "1"
+    b, m, sl = _bt.sort_plan(padded, len(bufs), opts, bufs[0].device)
+    bk.bitonic_sort_2d(bufs, block_elems=b, merge_elems=m, num_keys=num_keys,
+                       single_launch=sl)
     return tuple(from_i32(a[:n], dt) for a, dt in zip(bufs, dts))

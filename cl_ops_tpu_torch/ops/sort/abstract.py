@@ -159,7 +159,7 @@ class Sorter:
     __call__ = sort_with_device_data
 
 
-def sort_new(name: str = "abitonic",
+def sort_new(name: str = "satradix",
              options: str | dict[str, Any] | None = None,
              elem_dtype="uint", key_dtype=None,
              key_fn: Optional[Callable] = None,
@@ -167,8 +167,10 @@ def sort_new(name: str = "abitonic",
     """Create a sorter by name (parity: clo_sort_new, clo_sort_abstract.c:91).
 
     Args:
-      name: an impl of sort_names() ("abitonic").
-      options: reference-style option string/dict ("block_elems=1024").
+      name: an impl of sort_names(): "sbitonic" | "abitonic" | "gselect" |
+        "satradix" (the default, as in the JAX package) | "xla".
+      options: reference-style option string/dict (e.g. "radix=16" for
+        satradix, "block_elems=1024,single_launch=1" for abitonic).
       elem_dtype: element type of the array being sorted.
       key_dtype: ordering key type; defaults to elem_dtype.
       key_fn: tensor function elem -> key (CLO_SORT_KEY_GET analog).

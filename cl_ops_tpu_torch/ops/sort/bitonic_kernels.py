@@ -1,16 +1,19 @@
-"""The fused bitonic sort: host schedule, four CUDA kernels, plain versions.
+"""The bitonic sorts: host schedules, five CUDA kernels, plain versions.
 
-Counterpart of `cl_ops_tpu/ops/sort/bitonic_kernels.py` (fused branch). The
-data is a tuple of 1-D int32 columns of one power-of-two length; rows order
-by signed-i32 lexicographic comparison of the first `num_keys` columns (all
-when None) and the rest ride as payload.
+Counterpart of `cl_ops_tpu/ops/sort/bitonic_kernels.py`. The data is a tuple
+of 1-D int32 columns of one power-of-two length; rows order by signed-i32
+lexicographic comparison of the first `num_keys` columns (all when None) and
+the rest ride as payload.
 
-Schedule (`bitonic_sort_2d`) for n rows, sort block B and merge block M:
+Fused schedule (`bitonic_sort_2d`) for n rows, sort block B and merge block M:
   block_sort   stages K = 2 .. B inside each B-block          1 launch
   multi_stage  stages K = 2B .. M inside each M-block         1 launch (M > B)
   per stage K = 2M .. n:
     pair_cross one step at distance J, for J = K/2 .. M       in device memory
     block_merge  steps J = M/2 .. 1 inside each M-block       1 launch
+With single_launch=True the same network runs as one cooperative
+`whole_sort` launch (n x columns <= WHOLE_MAX). `sbitonic_sort_2d` runs it
+one `pair_cross` launch per step (K, J), J down to 1.
 
 Every compare-exchange is in pair form: the two rows swap, all columns
 together, only when strictly out of order for the pair's direction, which is
@@ -18,9 +21,9 @@ ascending iff (global index of the lower partner) & K == 0. So ties never
 duplicate a row, and a kernel and its plain version agree bit for bit, ties
 included. The CUDA kernels live in `csrc/bitonic.cu` and work in place.
 
-Each wrapper (`block_sort_`, `multi_stage_`, `pair_cross_`, `block_merge_`)
-runs the plain PyTorch version on CPU tensors and launches its kernel on
-CUDA tensors, adding one to `launches[<name>]` per launch.
+Each wrapper (`block_sort_`, `multi_stage_`, `pair_cross_`, `block_merge_`,
+`whole_sort_`) runs the plain PyTorch version on CPU tensors and launches its
+kernel on CUDA tensors, adding one to `launches[<name>]` per launch.
 """
 
 from __future__ import annotations
@@ -36,7 +39,11 @@ from cl_ops_tpu_torch.utils.platform import build_library
 MAX_COLS = 8           # csrc/bitonic.cu MAX_COLS
 MAX_LEN = 1 << 30      # indices and stage bits stay inside 32-bit ints
 SMEM_MAX = 227 * 1024  # dynamic shared memory one Hopper block can use
-KERNELS = ("block_sort", "multi_stage", "pair_cross", "block_merge")
+# n x columns of the single-launch sort: the JAX package's limit (16384 rows
+# of 128 per array), 8 MB of int32
+WHOLE_MAX = 1 << 21
+FUSED = ("block_sort", "multi_stage", "pair_cross", "block_merge")
+KERNELS = FUSED + ("whole_sort",)
 
 # Kernel launches per wrapper since the last reset_launches().
 launches = dict.fromkeys(KERNELS, 0)
@@ -62,12 +69,17 @@ def load_kernels():
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         for name in KERNELS:
             # (columns, n_cols, num_keys, n, 1 or 2 geometry ints, stream)
-            n_ints = 4 if name == "block_sort" else 5
+            n_ints = 4 if name in ("block_sort", "whole_sort") else 5
             fn = getattr(lib, f"clo_{name}")
             fn.argtypes = [ptrs] + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+# cudaErrorCooperativeLaunchTooLarge (CUDA 12's runtime enum): whole_sort's
+# grid cannot be co-resident
+_COOPERATIVE_TOO_LARGE = 720
 
 
 def _launch(name: str, cols, num_keys: int, *ints) -> None:
@@ -77,6 +89,9 @@ def _launch(name: str, cols, num_keys: int, *ints) -> None:
     with torch.cuda.device(dev):  # the library launches on the current device
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptrs, len(cols), num_keys, cols[0].numel(), *ints, stream)
+    if err == _COOPERATIVE_TOO_LARGE:
+        raise BadArgsError(f"{name}: {cols[0].numel()} rows need more "
+                           "co-resident blocks than the card holds")
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: error {err}")
     launches[name] += 1
@@ -172,6 +187,11 @@ def block_merge_plain(cols, merge: int, k: int, num_keys: int) -> None:
         j //= 2
 
 
+def whole_sort_plain(cols, num_keys: int) -> None:
+    """Plain version of whole_sort: every stage K = 2 .. n."""
+    _plain_stages(cols, 2, cols[0].numel(), num_keys)
+
+
 # --- wrappers ----------------------------------------------------------------
 
 def block_sort_(cols, block: int, num_keys: int | None = None):
@@ -219,16 +239,49 @@ def block_merge_(cols, merge: int, k: int, num_keys: int | None = None):
     return cols
 
 
-# --- host schedule -----------------------------------------------------------
+def whole_slice(n: int, n_cols: int) -> int:
+    """Rows of each whole_sort block: the largest power of two <= n whose
+    columns fit one block's shared memory."""
+    s = 1
+    while 2 * s <= n and n_cols * 2 * s * 4 <= SMEM_MAX:
+        s *= 2
+    return s
+
+
+def whole_sort_(cols, num_keys: int | None = None):
+    """Sort the columns ascending in one launch, in place. Raises
+    BadArgsError past WHOLE_MAX (n x columns), and on the card when the
+    grid cannot be co-resident; it never falls back to the fused
+    schedule."""
+    nk, cuda = _check(cols, num_keys)
+    n = cols[0].numel()
+    if n * len(cols) > WHOLE_MAX:
+        raise BadArgsError(f"single-launch sort holds n x columns <= "
+                           f"{WHOLE_MAX}, got {n} x {len(cols)}")
+    if n <= 1:
+        return cols
+    if cuda:
+        _launch("whole_sort", cols, nk, whole_slice(n, len(cols)))
+    else:
+        whole_sort_plain(cols, nk)
+    return cols
+
+
+# --- host schedules ----------------------------------------------------------
 
 def bitonic_sort_2d(cols, *, block_elems: int, merge_elems: int,
-                    num_keys: int | None = None):
+                    num_keys: int | None = None,
+                    single_launch: bool | None = None):
     """Sort power-of-two-length int32 columns ascending, in place.
 
     Named after its JAX counterpart; the columns here are 1-D. block_elems
-    and merge_elems are clamped to the length (merge >= block). Returns the
+    and merge_elems are clamped to the length (merge >= block).
+    single_launch=True runs whole_sort_ instead (the geometry is then
+    unused); None resolves to off, as in the JAX package. Returns the
     columns.
     """
+    if single_launch:
+        return whole_sort_(cols, num_keys)
     n = cols[0].numel()
     if n <= 1:
         return cols
@@ -261,10 +314,34 @@ def bitonic_merge_2d(cols, *, merge_elems: int, num_keys: int | None = None):
     return block_merge_(cols, m, 0, num_keys)
 
 
+def sbitonic_sort_2d(cols, *, num_keys: int | None = None):
+    """Sort power-of-two-length int32 columns ascending, in place, with one
+    pair_cross launch per network step (K, J): every stage K = 2 .. n, every
+    J = K/2 .. 1 (the reference's simple bitonic, one work item per pair).
+    The same network as bitonic_sort_2d, so the same output bit for bit.
+    Returns the columns."""
+    n = cols[0].numel()
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j >= 1:
+            pair_cross_(cols, k, j, num_keys)
+            j //= 2
+        k *= 2
+    return cols
+
+
+def sbitonic_steps(n: int) -> int:
+    """pair_cross launches of sbitonic_sort_2d."""
+    lg = log2_floor(n) if n > 1 else 0
+    return lg * (lg + 1) // 2
+
+
 def sweeps(n: int, block_elems: int, merge_elems: int) -> dict[str, int]:
-    """Launches of each kernel in bitonic_sort_2d (each one sweep)."""
+    """Launches of each fused-schedule kernel in bitonic_sort_2d (each one
+    sweep)."""
     if n <= 1:
-        return dict.fromkeys(KERNELS, 0)
+        return dict.fromkeys(FUSED, 0)
     b = min(block_elems, n)
     m = max(min(merge_elems, n), b)
     stages = log2_floor(n) - log2_floor(m)
@@ -273,10 +350,13 @@ def sweeps(n: int, block_elems: int, merge_elems: int) -> dict[str, int]:
 
 
 def fused_traffic_bytes(n_padded: int, n_arrays: int, block_elems: int,
-                        merge_elems: int) -> int:
+                        merge_elems: int,
+                        single_launch: bool | None = None) -> int:
     """Device-memory bytes bitonic_sort_2d moves: each launch reads and
-    writes every column once."""
+    writes every column once (whole_sort: one launch)."""
     per = 2 * n_padded * 4 * n_arrays
+    if single_launch:
+        return per
     return per * sum(sweeps(n_padded, block_elems, merge_elems).values())
 
 

@@ -104,6 +104,36 @@ def test_pair_cross_plain_matches_pallas(j, k):
     _same(tbk.pair_cross_(_torch(cols), k, j), want)
 
 
+@pytest.mark.parametrize("j,k", [(1, 2), (2, 8), (16, 64), (32, 8192),
+                                 (512, 1024)])
+def test_pair_cross_below_block_matches_single_step_kernel(j, k):
+    """sbitonic's steps J < its block: pair_cross against JAX's
+    _single_step_kernel (one step, J < B = 1024)."""
+    cols = _cols(2, 19, 64)
+    want = _np(jbk._call_single_step(_jax(cols), N // B, BR, k, j, True))
+    _same(tbk.pair_cross_(_torch(cols), k, j), want)
+
+
+@pytest.mark.parametrize("j,k", [(1024, 2048), (2048, 8192), (4096, 8192)])
+def test_pair_cross_above_block_matches_cross_kernel(j, k):
+    """sbitonic's steps J >= its block: pair_cross against JAX's
+    _cross_kernel (each block writes only itself)."""
+    cols = _cols(2, 20, 64)
+    want = _np(jbk._call_cross(_jax(cols), N // B, BR, j // B, k // B, True))
+    _same(tbk.pair_cross_(_torch(cols), k, j), want)
+
+
+@pytest.mark.parametrize("n_cols,hi", [(1, 2 ** 31), (3, 5)])
+def test_whole_sort_plain_matches_vmem_kernel(n_cols, hi):
+    """single_launch=1: whole_sort_ against JAX's _vmem_sort_kernel."""
+    cols = _cols(n_cols, 21, hi)
+    want = _np(jbk._call_per_block(jbk._vmem_sort_kernel, _jax(cols), 1,
+                                   N // 128, True))
+    tbk.reset_launches()
+    _same(tbk.whole_sort_(_torch(cols)), want)
+    assert tbk.launches["whole_sort"] == 0
+
+
 @pytest.mark.parametrize("k", [0, 2 * M, 4 * M])
 def test_block_merge_plain_matches_pallas(k):
     cols = _cols(2, 5, 2 ** 31)

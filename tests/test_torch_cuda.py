@@ -5,11 +5,16 @@ columns, key prefixes shorter than the row, tied prefixes, single-block
 arrays and the k = 0 merge; scans of odd lengths, all ops and dtypes, with
 dense and nearly absent segment flags; the band probe with 1-2 limbs, 1-3
 value columns, empty and ragged build sides and several window starts; the
-block scans at lengths 0, 1 and ragged tails. Every CUDA call checks that
+block scans at lengths 0, 1 and ragged tails; rank_hist with short tiles,
+radix 4-256 and digits outside the bins; pair_cross at distances 1-32;
+whole_sort up to its capacity and past it; the five sorters against numpy,
+and autotune with its cache in a temporary file. Every CUDA call checks that
 the kernel's launch counter moved, so no CUDA tensor reaches a plain
 version. Skips without CUDA. On a machine without JAX
 run it with `python -m pytest --noconftest tests/test_torch_cuda.py`.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -21,7 +26,9 @@ from cl_ops_tpu_torch.ops.exec import filter_compact, group_aggregate_cols
 from cl_ops_tpu_torch.ops.scan import kernels as sk
 from cl_ops_tpu_torch.ops.scan import scan_1d
 from cl_ops_tpu_torch.ops.scan import segmented as seg
+from cl_ops_tpu_torch.ops.sort import autotune
 from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
+from cl_ops_tpu_torch.ops.sort import radix_kernels as rk
 from cl_ops_tpu_torch.ops.sort import sort_new
 
 pytestmark = pytest.mark.cuda
@@ -95,7 +102,7 @@ def test_launch_counts_and_sorter(cuda):
     s = sort_new("abitonic", "block_elems=1024,merge_elems=4096")
     out = s.sort_with_host_data(x)
     np.testing.assert_array_equal(out, np.sort(x))
-    assert all(bk.launches[k] > 0 for k in bk.KERNELS)
+    assert all(bk.launches[k] > 0 for k in bk.FUSED)
 
 
 def test_filter_on_card(cuda):
@@ -427,3 +434,120 @@ def test_scan_new_on_card_matches_cpu(cuda, impl, elem):
         assert (np.abs(got - want) <= tol).all()
     else:
         np.testing.assert_array_equal(got, want)
+
+
+# --- the rest of the sort family (csrc/radix.cu; pair_cross at small
+# distances and whole_sort in csrc/bitonic.cu) ----------------------------------
+
+@pytest.mark.parametrize("radix", [4, 16, 256])
+@pytest.mark.parametrize("n,block", [(1, 512), (3 * 8192 + 77, 8192),
+                                     ((1 << 20) + 5, 1024), (5000, 1 << 14)])
+def test_rank_hist_matches_plain(cuda, radix, n, block):
+    rng = np.random.default_rng(radix + n)
+    d = torch.from_numpy(rng.integers(-1, radix + 1, n).astype(np.int32))
+    rk.reset_launches()
+    rank, hist = rk.rank_hist(d.to(cuda), radix, block)
+    want_rank, want_hist = rk.rank_hist_plain(d, radix, block)
+    torch.cuda.synchronize()
+    assert rk.launches["rank_hist"] == 1
+    assert torch.equal(rank.cpu(), want_rank)
+    assert torch.equal(hist.cpu(), want_hist)
+
+
+@pytest.mark.parametrize("j", [1, 2, 16, 32])
+@pytest.mark.parametrize("n_cols,num_keys,hi", [(1, 1, 2 ** 31), (3, 2, 4)])
+def test_pair_cross_small_distances(cuda, j, n_cols, num_keys, hi):
+    cols = _cols(1 << 16, n_cols, j, hi)
+    bk.reset_launches()
+    for k in (2 * j, 1 << 16, 0):
+        _run_both(cols, lambda c: bk.pair_cross_(c, k, j, num_keys),
+                  lambda c: bk.pair_cross_plain(c, k, j, num_keys), cuda)
+    assert bk.launches["pair_cross"] == 3
+
+
+@pytest.mark.parametrize("n,n_cols,num_keys,hi", [
+    (2, 1, None, 2 ** 31), (1024, 2, 1, 3), (1 << 15, 1, None, 2 ** 31),
+    (1 << 17, 3, 1, 3), (1 << 20, 2, None, 2 ** 31),
+    (1 << 21, 1, None, 2 ** 31), (1 << 18, 8, 3, 2)])
+def test_whole_sort_matches_fused(cuda, n, n_cols, num_keys, hi):
+    """One cooperative launch against the fused schedule's network, run as
+    plain versions on the card: bit for bit, tied key prefixes included."""
+    cols = [c.to(cuda) for c in _cols(n, n_cols, n_cols, hi)]
+    want = [c.clone() for c in cols]
+    bk.whole_sort_plain(want, n_cols if num_keys is None else num_keys)
+    bk.reset_launches()
+    bk.whole_sort_(cols, num_keys)
+    torch.cuda.synchronize()
+    assert bk.launches["whole_sort"] == 1
+    for a, b in zip(cols, want):
+        assert torch.equal(a, b)
+
+
+def test_whole_sort_past_capacity_raises(cuda):
+    from cl_ops_tpu_torch.core.errors import BadArgsError
+    bk.reset_launches()
+    with pytest.raises(BadArgsError):
+        bk.whole_sort_([torch.zeros(1 << 20, dtype=torch.int32,
+                                    device=cuda)] * 3)
+    with pytest.raises(BadArgsError):
+        sort_new("abitonic", "single_launch=1").sort_with_host_data(
+            np.zeros((1 << 21) + 1, np.uint32))
+    # past the co-resident grid (256 blocks of 32768 rows), refused by the
+    # library before any launch
+    big = [torch.zeros(1 << 23, dtype=torch.int32, device=cuda)]
+    with pytest.raises(BadArgsError):
+        bk._launch("whole_sort", big, 1, bk.whole_slice(1 << 23, 1))
+    assert bk.launches["whole_sort"] == 0
+
+
+SORTERS = [("satradix", None, "rank_hist"),
+           ("satradix", "radix=256,block_elems=4096", "rank_hist"),
+           ("satradix", "radix=4,scatter=bitonic,scan=blelloch", "rank_hist"),
+           ("sbitonic", None, "pair_cross"),
+           ("abitonic", "single_launch=1", "whole_sort"),
+           ("gselect", None, None), ("xla", None, None)]
+
+
+@pytest.mark.parametrize("name,opts,kernel", SORTERS)
+@pytest.mark.parametrize("dt", ["uint", "ulong", "float"])
+def test_sorters_on_card_match_numpy(cuda, name, opts, kernel, dt):
+    from cl_ops_tpu_torch.core.dtypes import type_by_name
+    rng = np.random.default_rng(len(name) + len(dt))
+    n = 5000 if name == "gselect" else 70_000
+    npdt = type_by_name(dt).np_dtype
+    x = (rng.standard_normal(n) * 100).astype(npdt) if dt == "float" else \
+        rng.integers(0, 2 ** (8 * np.dtype(npdt).itemsize), n,
+                     dtype=np.uint64).astype(npdt)
+    ties = x[rng.integers(0, 50, n)]
+    vals = np.arange(n, dtype=np.int32)
+    s = sort_new(name, opts, elem_dtype=dt)
+    bk.reset_launches()
+    rk.reset_launches()
+    np.testing.assert_array_equal(s.sort_with_host_data(x), np.sort(x))
+    k, v = s.sort_with_host_data(ties, vals)
+    np.testing.assert_array_equal(k, np.sort(ties))
+    if name in ("satradix", "gselect", "xla"):  # stable
+        np.testing.assert_array_equal(v, np.argsort(ties, kind="stable"))
+    else:
+        np.testing.assert_array_equal(ties[v], k)
+        np.testing.assert_array_equal(np.sort(v), vals)
+    if kernel is not None:
+        assert {**bk.launches, **rk.launches}[kernel] > 0
+
+
+def test_autotune_on_card(cuda, tmp_path, monkeypatch):
+    from cl_ops_tpu_torch.ops.exec import psort
+    path = tmp_path / "tune.json"
+    monkeypatch.setenv(autotune.CACHE_ENV, str(path))
+    monkeypatch.setattr(autotune, "_mem_cache", {})
+    x = np.random.default_rng(3).integers(0, 2 ** 32, 100_000,
+                                          dtype=np.uint32)
+    s = sort_new("abitonic", "autotune=1")
+    np.testing.assert_array_equal(s.sort_with_host_data(x), np.sort(x))
+    entry = json.loads(path.read_text())
+    assert list(entry) == [f"{torch.cuda.get_device_name(cuda)}:131072x1"]
+    monkeypatch.setenv("CL_OPS_PSORT_AUTOTUNE", "1")
+    col = torch.from_numpy(x.view(np.int32)).to(cuda)
+    got = psort.sort_i32_cols((col,))[0]
+    assert torch.equal(got, torch.sort(col).values)
+    assert len(json.loads(path.read_text())) == 1  # the same shape: cached

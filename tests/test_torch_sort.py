@@ -197,20 +197,42 @@ def test_introspection():
     assert tsort.sort_new("abitonic", elem_dtype="ulong").smem_usage(
         "multi_stage", 1 << 20) == (1 << 14) * 4 * 2
     assert s.elem_dtype == s.key_dtype == torch.uint32
-    assert tsort.sort_names() == ["abitonic"]
+    assert tsort.sort_names() == jsort.sort_names()
+
+
+def test_default_sorter_matches_jax():
+    """sort_new() builds satradix in both packages: a stable sort, so the
+    values of tied keys come out in input order in both."""
+    assert tsort.sort_new().name == jsort.sort_new().name == "satradix"
+    x = _rand(np.uint32, 600, 25) % 50
+    vals = _rand(np.int32, 600, 26)
+    wk, wv = jsort.sort_new(options="block_rows=8,scatter=xla"
+                            ).sort_with_host_data(x, vals)
+    gk, gv = tsort.sort_new(options="block_elems=1024").sort_with_host_data(
+        x, vals, device="cpu")
+    _bits_equal(gk, wk)
+    _bits_equal(gv, wv)
 
 
 def test_bad_args():
     with pytest.raises(CloOpsError):
         tsort.sort_new("nope")
+    assert tsort.sort_new("sbitonic").name == "sbitonic"
     with pytest.raises(CloOpsError):
-        tsort.sort_new("sbitonic")  # not ported yet
+        tsort.sort_new("sbitonic", "block_elems=1000")
     with pytest.raises(CloOpsError):
         tsort.sort_new("abitonic", key_dtype="uchar")  # no key_fn
-    for opt in ("single_launch=1", "autotune=1", "block_elems=1000"):
+    for opt in ("single_launch=2", "autotune=on"):
         with pytest.raises(BadArgsError):
-            tsort.sort_new("abitonic", opt).sort_with_host_data(
-                np.arange(10, dtype=np.uint32), device="cpu")
+            tsort.sort_new("abitonic", opt)
+    x = np.arange(10, dtype=np.uint32)[::-1].copy()
+    for opt in ("single_launch=1", "autotune=1"):
+        np.testing.assert_array_equal(tsort.sort_new("abitonic", opt)
+                                      .sort_with_host_data(x, device="cpu"),
+                                      np.sort(x))
+    with pytest.raises(BadArgsError):
+        tsort.sort_new("abitonic", "block_elems=1000").sort_with_host_data(
+            x, device="cpu")
     s = tsort.sort_new("abitonic")
     with pytest.raises(CloOpsError):
         s.sort_with_device_data(torch.zeros((2, 2), dtype=torch.uint32))
