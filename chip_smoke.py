@@ -2,21 +2,26 @@
 """Smoke run of cl_ops_tpu_torch on one CUDA card.
 
 Builds the CUDA kernels from `cl_ops_tpu_torch/csrc/` (bitonic.cu, scan.cu,
-bandprobe.cu and radix.cu, one nvcc per source, started together), holds
-each of the twelve kernels against its plain PyTorch version at the main
-path's shapes, drives the main path (abitonic sort of 16M u32 keys, KV sort
-of 16M u64 keys with u32 values, sort_pipeline at 16M, filter_compact over
-64M rows at 10% selectivity, GROUP BY of 256M rows into 1M groups,
-analytics_query over 64M rows, q1_query over 16M rows into 64K groups, a
-GROUP BY of 16M int64 measures, the join probe of 256M rows against 16M and
-of 16M against 1M in three forms, hash_join_expand of 16M probes x 4
-matches, rollup_query 16M x 1M, star_query over 16M rows, scan_new
-("blelloch") over 64M uint32 and float32 values, satradix KV sorts of 16M
-u64 keys with u32 values at radix 16 and 256, the vendor sorter "xla" on
-the same, satradix and sbitonic of 16M u32 keys, abitonic single_launch=1
-at 1M and autotune=1 at 16M, and gselect of 64K keys with values), checks
-every result against torch, numpy or a formula, and times the kernels and
-the phases with CUDA events. Run from the repository root:
+bandprobe.cu, radix.cu, dense_agg.cu and chunk_copy.cu, one nvcc per
+source, started together), holds each of the fourteen kernels against its
+plain PyTorch version at the main path's shapes, drives the main path
+(abitonic sort of 16M u32 keys, KV sort of 16M u64 keys with u32 values,
+sort_pipeline at 16M, filter_compact over 64M rows at 10% selectivity,
+GROUP BY of 256M rows into 1M groups, analytics_query over 64M rows,
+q1_query over 16M rows into 64K groups, a GROUP BY of 16M int64 measures,
+the join probe of 256M rows against 16M and of 16M against 1M in three
+forms, hash_join_expand of 16M probes x 4 matches, rollup_query 16M x 1M,
+star_query over 16M rows, scan_new ("blelloch") over 64M uint32 and
+float32 values, satradix KV sorts of 16M u64 keys with u32 values at radix
+16 and 256, the vendor sorter "xla" on the same, satradix and sbitonic of
+16M u32 keys, abitonic single_launch=1 at 1M and autotune=1 at 16M,
+gselect of 64K keys with values, the dense GROUP BY of TPC-H Q1 over 64M
+rows and of 64M rows into 1024 groups, window sum + row_number over 16M
+rows in 64K partitions in both output forms, top-1K of 64M u32 and a
+duplicate flood at 16M, DISTINCT over 64M u32 with 1M values, and the
+blocked run copy of one radix-16 pass over 16M keys), checks every result
+against torch, numpy or a formula, and times the kernels and the phases
+with CUDA events. Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -57,6 +62,14 @@ EXPAND_M, EXPAND_NB = 1 << 24, 1 << 22  # bench_all.py config 6
 ROLLUP_N, ROLLUP_DIM = 1 << 24, 1 << 20  # bench_all.py config 7
 STAR_N, STAR_DIM, STAR_CATS = 1 << 24, 1 << 14, 256  # README star_query
 BLOCK_SCAN_N = 1 << 26  # scan_bench.py: the top of its default sweep
+DENSE_N, DENSE_GROUPS = 1 << 24, (4, 200, 1024)  # dense_agg's kernel phase
+Q1D_N = 1 << 26              # TPC-H Q1 over lineitem at about SF 10
+DENSE_BIG_N = 1 << 26        # DENSE_MAX_GROUPS groups
+WINDOW_N, WINDOW_G = 1 << 24, 1 << 16  # bench_all.py config 9
+TOPK_N, TOPK_K = 1 << 26, 1024         # bench_all.py config 10
+FLOOD_N, FLOOD_K = 1 << 24, 10         # test_topk.py's flood, scaled
+DISTINCT_N, DISTINCT_U = 1 << 26, 1 << 20  # bench_all.py config 11
+DMA_N, DMA_BLOCK, DMA_RADIX = 1 << 24, 1 << 16, 16  # radix_dma_probe.py
 
 
 def phase(name):
@@ -95,13 +108,16 @@ KERNEL_GROUPS = (("bitonic", ("block_sort", "multi_stage", "pair_cross",
                               "block_merge", "whole_sort")),
                  ("scan", ("scan_tiles", "scan_block_tiles")),
                  ("join", ("probe_band",)),
-                 ("radix", ("rank_hist",)))
+                 ("radix", ("rank_hist",)),
+                 ("dense", ("dense_agg",)),
+                 ("copy", ("chunk_copy",)))
 
 
 def device_breakdown(cell, fn):
     """Trace one fn() with torch.profiler and print the device time by
-    kernel group (the port's bitonic, scan, band-probe and rank_hist
-    kernels, torch's own kernels, copies and fills), the call's time on the
+    kernel group (the port's bitonic, scan, band-probe, rank_hist,
+    dense_agg and chunk_copy kernels, torch's own kernels, copies and
+    fills), the call's time on the
     host clock and the device's idle share of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -311,10 +327,11 @@ def report(cell, fn, reps, model_bytes, launches, rows, **extra):
     line: ms, Mrows/s, model bytes and their bound, launches."""
     ms = cuda_ms(fn, reps)
     device_breakdown(cell, fn)
+    bound_ms = model_bytes / PEAK_BYTES_S * 1e3
     print(json.dumps({"cell": cell, "ms": ms, "mrows_s": rows / ms / 1e3,
-                      "model_bytes": model_bytes,
-                      "bound_ms": model_bytes / PEAK_BYTES_S * 1e3,
-                      "launches": launches, **extra}), flush=True)
+                      "model_bytes": model_bytes, "bound_ms": bound_ms,
+                      "bound_share": bound_ms / ms, "launches": launches,
+                      **extra}), flush=True)
     return ms
 
 
@@ -807,6 +824,354 @@ def sort_family_cells(dev, reset, count):
         report(tag, gsel, 3, 2 * 8 * ng, launches, ng, compares=ng * ng)
 
 
+def radix_run_table(n, block, radix):
+    """radix_dma_probe.py's phase 2: n int32 keys from RandomState(0), cut
+    into blocks of `block` keys; each (block, digit) pair of the low digit
+    is one run, in digit-major order, with chunk-aligned destinations.
+    Returns (keys, run starts, destinations, lengths, n_chunks) as numpy."""
+    import numpy as np
+    from cl_ops_tpu_torch.ops.sort import dma_scatter as ds
+    keys = np.random.RandomState(0).randint(0, 1 << 31, size=n,
+                                            dtype=np.int64).astype(np.int32)
+    nb = n // block
+    hist = np.bincount(np.repeat(np.arange(nb) * radix, block)
+                       + (keys & (radix - 1)),
+                       minlength=nb * radix).reshape(nb, radix)
+    off_in_block = np.cumsum(hist, axis=1) - hist
+    starts = (np.arange(nb)[:, None] * block + off_in_block).T.reshape(-1)
+    lengths = hist.T.reshape(-1)
+    qlen = (lengths + ds.CHUNK - 1) // ds.CHUNK * ds.CHUNK
+    qstarts = np.cumsum(qlen) - qlen
+    return (keys, starts.astype(np.int32), qstarts.astype(np.int32),
+            lengths.astype(np.int32), n // ds.CHUNK + radix * nb)
+
+
+def query_kernel_records(dev):
+    """dense_agg over DENSE_N rows at each of DENSE_GROUPS (masked; an
+    int32 sum, a flipped u32 min and max, float32 limbs' min and max), and
+    chunk_copy on radix_dma_probe's run table, each against its plain
+    version bit for bit. Yardsticks: one index_add_ of one int32 column
+    into the groups; for chunk_copy, which no library call computes, the
+    clone() of its source for scale."""
+    import torch
+    from cl_ops_tpu_torch.ops.exec import dense_agg as da
+    from cl_ops_tpu_torch.ops.sort import dma_scatter as ds
+    from cl_ops_tpu_torch.ops.sort import keys as keymod
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n = DENSE_N
+    recs = {}
+
+    def randint(lo, hi):
+        return torch.randint(lo, hi, (n,), dtype=torch.int32, device=dev,
+                             generator=gen)
+    mask = torch.rand(n, device=dev, generator=gen) < 0.98
+    i32, u32 = randint(-2 ** 31, 2 ** 31 - 1), randint(-2 ** 31, 2 ** 31 - 1)
+    f32 = keymod.to_limbs(torch.randn(n, device=dev, generator=gen))[0]
+    reds = ((None, "count", False), (i32, "sum", False), (u32, "min", True),
+            (u32, "max", True), (f32, "min", False), (f32, "max", False))
+    for g in DENSE_GROUPS:
+        gid = randint(0, g)
+
+        def kern(gid=gid, g=g):
+            return da.dense_agg(gid, mask, reds, g)
+
+        def plain(gid=gid, g=g):
+            return da.dense_agg_plain(gid, mask, reds, g)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err((got,), (want,))
+        if err:
+            raise AssertionError(f"dense_agg G={g}: kernel differs from its "
+                                 f"plain version (max abs err {err})")
+        table = torch.zeros(g, dtype=torch.int32, device=dev)
+        recs[f"dense_agg {g}"] = kernel_record(
+            "dense_agg", "cl_ops_tpu_torch/csrc/dense_agg.cu", err,
+            cuda_ms(kern, 7), cuda_ms(plain, 3), dense_read_bytes(n, 3, True),
+            n * len(reds),
+            cuda_ms(lambda gid=gid, t=table: t.index_add_(0, gid, i32), 7),
+            f"n={n} groups={g} masked; count, int32 sum, u32 min and max, "
+            f"float32 min and max")
+        del gid
+    del mask, i32, u32, f32
+
+    keys, starts, qstarts, lengths, n_chunks = radix_run_table(
+        DMA_N, DMA_BLOCK, DMA_RADIX)
+    src = torch.from_numpy(keys).to(dev)
+    params = ds.plan_run_chunks(
+        *(torch.from_numpy(a).to(dev) for a in (starts, qstarts, lengths)),
+        n_chunks_static=n_chunks)
+
+    def copy():
+        return ds.chunk_copy((src,), params, n_chunks=n_chunks)
+
+    def copy_plain():
+        return ds.chunk_copy_plain((src,), params, n_chunks)
+    got, want = copy(), copy_plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"chunk_copy: kernel differs from its plain "
+                             f"version (max abs err {err})")
+    recs["chunk_copy"] = kernel_record(
+        "chunk_copy", "cl_ops_tpu_torch/csrc/chunk_copy.cu", err,
+        cuda_ms(copy, 7), cuda_ms(copy_plain, 3),
+        chunk_copy_bytes(params, 1), 0, None,
+        f"n={DMA_N} block={DMA_BLOCK} radix={DMA_RADIX} runs={len(lengths)} "
+        f"chunks={n_chunks}", clone_ms=cuda_ms(src.clone, 7))
+    return recs
+
+
+def query_cells(dev, reset, count):
+    """The dense GROUP BY, window, top-k, DISTINCT and run-copy cells: each
+    driven once between reset() and count(), checked against numpy, timed
+    with CUDA events and traced once."""
+    import numpy as np
+    import torch
+
+    from cl_ops_tpu_torch import interop
+    from cl_ops_tpu_torch.ops.exec import (distinct,
+                                           group_aggregate_dense_cols, psort,
+                                           top_k, topk, window_cols)
+    from cl_ops_tpu_torch.ops.sort import dma_scatter as ds
+
+    def check(name, ok):
+        if not ok:
+            raise AssertionError(name)
+
+    def drive(tag, fn):
+        reset()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, count(tag)
+
+    # TPC-H Q1 over lineitem at about SF 10: the four (returnflag,
+    # linestatus) pairs of Q1's answer in its proportions, gid = flag * 2 +
+    # status in 6 slots, shipdate <= cutoff keeping about 98%
+    n = Q1D_N
+    tag = f"dense q1 {n}, 6 slots, 4 groups"
+    with phase(tag):
+        rng = np.random.default_rng(SEED + 11)
+        pair = rng.choice(4, n, p=[0.25, 0.0065, 0.4935, 0.25])
+        gid = np.array([0, 2, 3, 4], np.int32)[pair]  # AF, NF, NO, RF
+        ship = rng.integers(0, 2557, n).astype(np.int32)
+        cutoff = 2505
+        qty = rng.integers(1, 51, n).astype(np.int32)
+        disc = rng.integers(0, 11, n).astype(np.int32)
+        price = (qty * rng.integers(90_000, 210_000, n)).astype(np.int32)
+        d = [interop.to_torch(a, dev) for a in (gid, ship, qty, disc, price)]
+        aggs = ("sum", "mean", "sum", "mean", "min", "max", "count")
+
+        def q1():
+            return group_aggregate_dense_cols(
+                d[0], (d[2], d[2], d[3], d[3], d[4], d[4], d[2]), aggs,
+                num_groups=6, valid_mask=d[1] <= cutoff)
+        (gk, tabs, cnt), launches = drive(tag, q1)
+        keep = ship <= cutoff
+        present = [g for g in range(6) if (keep & (gid == g)).any()]
+        check("dense q1 count", int(cnt) == len(present) == 4)
+        check("dense q1 keys", interop.to_numpy(gk)[:4].tolist() == present)
+        tabs = [interop.to_numpy(t)[:4] for t in tabs]
+        for i, g in enumerate(present):
+            m = keep & (gid == g)
+            c = int(m.sum())
+            sq, sd = int(qty[m].sum()), int(disc[m].sum())
+            want = (sq, np.float32(sq) / np.float32(c), sd,
+                    np.float32(sd) / np.float32(c), price[m].min(),
+                    price[m].max(), c)
+            for name, got_t, w in zip(aggs, tabs, want):
+                check(f"dense q1 group {g} {name}", got_t[i] == w)
+        del gk, tabs
+        report(tag, q1, 5, n * sum(DENSE_Q1_BYTES_PER_ROW.values()),
+               launches, n, kept=int(keep.sum()))
+        del d, gid, ship, qty, disc, price, keep
+
+    n, g = DENSE_BIG_N, 1024
+    tag = f"dense {n} x {g} groups"
+    with phase(tag):
+        rng = np.random.default_rng(SEED + 12)
+        gid = rng.integers(0, g, n).astype(np.int32)
+        val = rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+        dg, dv = interop.to_torch(gid, dev), interop.to_torch(val, dev)
+
+        def big():
+            return group_aggregate_dense_cols(
+                dg, (dv, dv, dv, dv), ("sum", "min", "max", "count"),
+                num_groups=g)
+        (gk, (s, mn, mx, c), cnt), launches = drive(tag, big)
+        # sums mod 2^32 from exact float64 sums of the 16-bit halves; min
+        # and max from one sort of (group, value)
+        lo = np.bincount(gid, weights=val & 0xFFFF, minlength=g)
+        hi = np.bincount(gid, weights=val >> 16, minlength=g)
+        sums = ((lo.astype(np.int64) + (hi.astype(np.int64) << 16))
+                & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        sk = np.sort((gid.astype(np.int64) << 32) | (val.astype(np.int64)
+                                                     + 2 ** 31))
+        first = np.searchsorted(sk >> 32, np.arange(g))
+        last = np.searchsorted(sk >> 32, np.arange(g), side="right") - 1
+        check("dense 1024 count", int(cnt) == g)
+        check("dense 1024 keys", np.array_equal(interop.to_numpy(gk),
+                                                np.arange(g)))
+        check("dense 1024 sums", np.array_equal(interop.to_numpy(s), sums))
+        check("dense 1024 min", np.array_equal(
+            interop.to_numpy(mn), (sk[first] & 0xFFFFFFFF) - 2 ** 31))
+        check("dense 1024 max", np.array_equal(
+            interop.to_numpy(mx), (sk[last] & 0xFFFFFFFF) - 2 ** 31))
+        check("dense 1024 counts", np.array_equal(interop.to_numpy(c),
+                                                  np.bincount(gid)))
+        del gk, s, mn, mx, c, sk, lo, hi
+        report(tag, big, 5, dense_read_bytes(n, 1, False), launches, n)
+        del dg, dv, gid, val
+
+    # bench_all.py config 9: sum + row_number over 16M rows, 64K
+    # partitions, the restore form and sorted_output
+    n, g = WINDOW_N, WINDOW_G
+    with phase(f"window {n} x {g}"):
+        wk = np.random.RandomState(9).randint(0, g, size=n).astype(np.uint32)
+        wo = np.random.RandomState(10).randint(0, 1 << 30, size=n) \
+            .astype(np.uint32)
+        wv = np.random.RandomState(11).randint(0, 100, size=n) \
+            .astype(np.int32)
+        dk, do, dv = (interop.to_torch(a, dev) for a in (wk, wo, wv))
+        idx = np.lexsort((np.arange(n), wo, wk))  # the window order
+        sk = wk[idx]
+        start = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+        run_len = np.diff(np.r_[start, n])
+        row_start = np.repeat(start, run_len)
+        csum = np.cumsum(wv[idx], dtype=np.int64)
+        run_sum = csum - np.repeat(np.r_[0, csum[start[1:] - 1]], run_len)
+        row_num = np.arange(n) - row_start + 1
+        sorted_bytes = psort.sort_traffic_bytes(n, 4) + WINDOW_SCAN_BYTES * n
+        for form, kw, model in (
+                ("restore", {}, sorted_bytes
+                 + psort.sort_traffic_bytes(n, 3)),
+                ("sorted_output", {"sorted_output": True}, sorted_bytes)):
+            tag = f"window {n} x {g} sum + row_number, {form}"
+
+            def win(kw=kw):
+                return window_cols(dk, do, (dv, None), ("sum", "row_number"),
+                                   **kw)
+            out, launches = drive(tag, win)
+            if form == "restore":
+                got_s, got_r = (interop.to_numpy(t) for t in out)
+                check(f"{tag}: sums", np.array_equal(got_s[idx], run_sum))
+                check(f"{tag}: row numbers",
+                      np.array_equal(got_r[idx], row_num))
+            else:
+                (got_s, got_r), src = out
+                check(f"{tag}: row_src", np.array_equal(
+                    interop.to_numpy(src), idx))
+                check(f"{tag}: sums", np.array_equal(
+                    interop.to_numpy(got_s), run_sum))
+                check(f"{tag}: row numbers", np.array_equal(
+                    interop.to_numpy(got_r), row_num))
+            del out, got_s, got_r
+            report(tag, win, 3, model, launches, n, partitions=len(start))
+        del dk, do, dv, idx, csum, run_sum, row_start, row_num
+
+    # bench_all.py config 10: top-1K of 64M u32 with an int32 payload; and
+    # a duplicate flood that takes the exact branch
+    n, k = TOPK_N, TOPK_K
+    tag = f"topk {k} of {n} u32 + int32"
+    with phase(tag):
+        tv = np.random.RandomState(12).randint(0, 1 << 30, size=n) \
+            .astype(np.uint32)
+        tp = np.random.RandomState(13).randint(0, 1 << 30, size=n) \
+            .astype(np.int32)
+        dtv, dtp = interop.to_torch(tv, dev), interop.to_torch(tp, dev)
+        # numpy's stable order of the k smallest: every row up to the k-th
+        # value, by (value, position)
+        kth = np.partition(tv, k - 1)[k - 1]
+        cand = np.flatnonzero(tv <= kth)
+        want = cand[np.argsort(tv[cand], kind="stable")][:k]
+
+        def tk():
+            return top_k(dtv, k, dtp)
+        (ov, op), launches = drive(tag, tk)
+        branch = topk.last_branch
+        check(f"{tag}: values", np.array_equal(interop.to_numpy(ov),
+                                               tv[want]))
+        check(f"{tag}: payload", np.array_equal(interop.to_numpy(op),
+                                                tp[want]))
+        report(tag, tk, 5, n * sum(TOPK_BYTES_PER_ROW.values()), launches,
+               n, branch=branch)
+        del dtv, dtp, tv, tp
+
+    n, k = FLOOD_N, FLOOD_K
+    tag = f"topk {k} of {n} u32, 90% ties at the minimum"
+    with phase(tag):
+        rng = np.random.RandomState(1)
+        fv = np.zeros(n, np.uint32)
+        fv[: n // 10] = rng.randint(1, 1 << 20, size=n // 10)
+        rng.shuffle(fv)
+        dfv = interop.to_torch(fv, dev)
+        dpos = torch.arange(n, dtype=torch.int32, device=dev)
+
+        def flood():
+            return top_k(dfv, k, dpos)
+        (ov, op), launches = drive(tag, flood)
+        branch = topk.last_branch
+        check(f"{tag}: exact branch", branch == "exact")
+        want = np.flatnonzero(fv == 0)[:k]
+        check(f"{tag}: values", np.array_equal(interop.to_numpy(ov),
+                                               fv[want]))
+        check(f"{tag}: payload", np.array_equal(interop.to_numpy(op), want))
+        report(tag, flood, 3, psort.sort_traffic_bytes(n, 3)
+               + n * sum(TOPK_BYTES_PER_ROW.values()), launches, n,
+               branch=branch)
+        del dfv, dpos, fv
+
+    # bench_all.py config 11: DISTINCT over 64M u32 with 1M values
+    n, u = DISTINCT_N, DISTINCT_U
+    tag = f"distinct {n} u32, {u} values"
+    with phase(tag):
+        dk_h = np.random.RandomState(14).randint(0, u, size=n) \
+            .astype(np.uint32)
+        ddk = interop.to_torch(dk_h, dev)
+
+        def dist():
+            return distinct(ddk, capacity=u)
+        (vals, cnt), launches = drive(tag, dist)
+        uniq = np.unique(dk_h)
+        c = int(cnt)
+        check(f"{tag}: count", c == len(uniq))
+        check(f"{tag}: values", np.array_equal(interop.to_numpy(vals)[:c],
+                                               uniq))
+        del vals
+        report(tag, dist, 3, 2 * psort.sort_traffic_bytes(n, 1)
+               + n * sum(DISTINCT_BYTES_PER_ROW.values()), launches, n,
+               distinct=c)
+        del ddk, dk_h, uniq
+
+    # radix_dma_probe.py phase 2: the blocked writes of one radix-16 pass
+    n = DMA_N
+    tag = f"run copy {n} int32, radix {DMA_RADIX}, block {DMA_BLOCK}"
+    with phase(tag):
+        keys, starts, qstarts, lengths, n_chunks = radix_run_table(
+            n, DMA_BLOCK, DMA_RADIX)
+        src = interop.to_torch(keys, dev)
+        runs = [interop.to_torch(a, dev) for a in (starts, qstarts, lengths)]
+
+        def run_copy():
+            params = ds.plan_run_chunks(*runs, n_chunks_static=n_chunks)
+            return ds.chunk_copy((src,), params, n_chunks=n_chunks)
+        (out,), launches = drive(tag, run_copy)
+        out = interop.to_numpy(out)
+        run = np.repeat(np.arange(len(lengths)), lengths)
+        j = np.arange(n) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+        dst = qstarts[run] + j
+        check(f"{tag}: runs land", np.array_equal(out[dst],
+                                                  keys[starts[run] + j]))
+        slack = np.ones(out.size, bool)
+        slack[dst] = False
+        check(f"{tag}: slack is the sentinel", bool((out[slack]
+                                                     == ds._SENT).all()))
+        params = ds.plan_run_chunks(*runs, n_chunks_static=n_chunks)
+        report(tag, run_copy, 7, chunk_copy_bytes(params, 1), launches, n,
+               runs=len(lengths), chunks=n_chunks,
+               slack_share=float(slack.sum()) / out.size)
+        del src, runs, out, params
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -818,6 +1183,7 @@ def main() -> int:
     from cl_ops_tpu_torch import interop
     from cl_ops_tpu_torch.models import pipeline
     from cl_ops_tpu_torch.ops.exec import bandprobe as bp
+    from cl_ops_tpu_torch.ops.exec import dense_agg as da
     from cl_ops_tpu_torch.ops.exec import (filter_compact,
                                            group_aggregate_cols,
                                            group_aggregate_sorted, psort)
@@ -826,11 +1192,14 @@ def main() -> int:
     from cl_ops_tpu_torch.ops.scan import segmented as seg
     from cl_ops_tpu_torch.ops.sort import bitonic as bt
     from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
+    from cl_ops_tpu_torch.ops.sort import dma_scatter as ds
     from cl_ops_tpu_torch.ops.sort import keys as keymod
     from cl_ops_tpu_torch.ops.sort import radix_kernels as rk
     from cl_ops_tpu_torch.ops.sort import sort_new
 
     dev = torch.device("cuda")
+    kernel_mods = (bk, sk, seg, bp, rk, da, ds)  # those with launch counters
+    built = (bk, sk, bp, rk, da, ds)  # one per CUDA source
     rng = np.random.default_rng(SEED)
 
     with phase("environment"):
@@ -842,12 +1211,11 @@ def main() -> int:
         print("torch", torch.__version__, "cuda", torch.version.cuda,
               "device", torch.cuda.get_device_name(0))
         t = time.perf_counter()
-        with ThreadPoolExecutor(4) as pool:  # one nvcc per source
-            for f in [pool.submit(m.load_kernels) for m in (bk, sk, bp, rk)]:
+        with ThreadPoolExecutor(len(built)) as pool:  # one nvcc per source
+            for f in [pool.submit(m.load_kernels) for m in built]:
                 f.result()
         print(f"kernel build+load: {time.perf_counter() - t:.3f} s")
-        for line in (bk.build_log + sk.build_log + bp.build_log
-                     + rk.build_log).splitlines():
+        for line in "".join(m.build_log for m in built).splitlines():
             if "registers" in line or "Compiling entry" in line:
                 print("ptxas:", line.strip())
 
@@ -975,14 +1343,17 @@ def main() -> int:
         for r in family_recs.values():
             print("kernel", json.dumps(r))
 
-    all_kernels = (bk.KERNELS + sk.KERNELS + seg.KERNELS + bp.KERNELS
-                   + rk.KERNELS)
-    counters = (bk.launches, sk.launches, seg.launches, bp.launches,
-                rk.launches)
+    with phase("dense_agg and chunk_copy kernels vs plain"):
+        query_recs = query_kernel_records(dev)
+        for r in query_recs.values():
+            print("kernel", json.dumps(r))
+
+    all_kernels = sum((m.KERNELS for m in kernel_mods), ())
+    counters = tuple(m.launches for m in kernel_mods)
     main_launches = dict.fromkeys(all_kernels, 0)
 
     def reset():
-        for m in (bk, sk, seg, bp, rk):
+        for m in kernel_mods:
             m.reset_launches()
 
     def count(name):
@@ -1246,6 +1617,7 @@ def main() -> int:
 
     join_cells(dev, reset, count)
     sort_family_cells(dev, reset, count)
+    query_cells(dev, reset, count)
 
     for name, n in main_launches.items():
         if n <= 0:
@@ -1258,7 +1630,9 @@ def main() -> int:
                           scan_recs["scan_block_wide"],
                           band_recs[f"{JOIN_BIG[0]}x{JOIN_BIG[1]}"],
                           family_recs["whole_sort 1048576"],
-                          family_recs["rank_hist 16"]]
+                          family_recs["rank_hist 16"],
+                          query_recs["dense_agg 4"],
+                          query_recs["chunk_copy"]]
     u32_recs[2]["ms_by_distance"] = {
         j: family_recs[f"pair_cross {j}"]["ms"] for j in (1, 16, 32, 1024)}
     for r in summary:
@@ -1285,6 +1659,8 @@ REPLACES = {
     "probe_band": "cl_ops_tpu/ops/exec/bandprobe.py:87",
     "whole_sort": "cl_ops_tpu/ops/sort/bitonic_kernels.py:567",
     "rank_hist": "cl_ops_tpu/ops/sort/satradix.py:62",
+    "dense_agg": "cl_ops_tpu/ops/exec/dense_agg.py:56",
+    "chunk_copy": "cl_ops_tpu/ops/sort/dma_scatter.py:47",
 }
 
 # Device-memory bytes per row of the GROUP BY cell outside the sort, counted
@@ -1301,6 +1677,50 @@ GROUPBY_BYTES_PER_ROW = {
     "scan_carry of the end flags": 8,
     "scan_carry of the values": 8,
 }
+
+# The query cells' models: device-memory bytes each row needs moved, counted
+# from the port's code (each torch op reads its operands and writes its
+# result once).
+DENSE_Q1_BYTES_PER_ROW = {
+    "shipdate read by the WHERE": 4,
+    "mask written and read": 2,
+    "group id": 4,
+    "quantity, discount and price": 12,
+}
+# window: two segmented scans (value, flag, out) and the limb-change flags
+WINDOW_SCAN_BYTES = 2 * 3 * 4 + 4
+# top_k's fast branch: no n-row sort
+TOPK_BYTES_PER_ROW = {
+    "value limbs": 8,
+    "survivor mask (compare, to int32)": 10,
+    "survivor counts per block": 4,
+    "four first-survivor sweeps": 16,
+}
+# distinct outside its two sorts (the keys', and the dense group ends' sort
+# of flag * n + position)
+DISTINCT_BYTES_PER_ROW = {
+    "key limbs to and from the sort": 16,
+    "positions and validity": 5,
+    "is_new (compare, concat, and)": 14,
+    "count (sum of is_new)": 1,
+    "is_end (concats, not, or, and)": 12,
+    "end flags' sort key (flag * n + position)": 29,
+}
+
+
+def dense_read_bytes(n, n_cols, masked):
+    """The bytes dense_agg must read: each row's id, its mask byte where a
+    mask is given, and each distinct column once (the tables are KBs)."""
+    return n * (4 + int(masked) + 4 * n_cols)
+
+
+def chunk_copy_bytes(params, n_arrays):
+    """The bytes chunk_copy must move: per array, each chunk's valid
+    elements read once and each whole chunk written once."""
+    from cl_ops_tpu_torch.ops.sort import dma_scatter as ds
+    rem = int(params[3].double().sum())
+    return n_arrays * (4 * rem + 4 * ds.CHUNK * params.shape[1])
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,19 +1,26 @@
 """cl_ops_tpu_torch — the PyTorch/CUDA port of cl_ops_tpu for NVIDIA Hopper.
 
 Same entry points and results as the JAX package `cl_ops_tpu`, which stays
-beside it as the reference; the sort's compare-exchange kernels are CUDA C++
-for sm_90a (`csrc/`), built with nvcc at first CUDA use. Functions given
-tensors run where their tensors lie (CPU tensors take each kernel's plain
-PyTorch version); entry points that take host data or generate data run on
-"cuda" unless given `device=`.
+beside it as the reference; every Pallas kernel of the JAX package has a
+CUDA C++ counterpart for sm_90a (`csrc/`), built with nvcc at first CUDA
+use. Functions given tensors run where their tensors lie (CPU tensors take
+each kernel's plain PyTorch version); entry points that take host data or
+generate data run on "cuda" unless given `device=`.
 
 Layer map (mirrors cl_ops_tpu):
   core/     — dtype registry, op registries, errors
-  utils/    — bit helpers, device selection, kernel build
+  utils/    — bit helpers, wrapping integer math, device selection, kernel
+              build
   interop   — bit-exact numpy <-> torch hand-over
-  ops/      — rng/ (Threefry), sort/ (abitonic), exec/ (filter)
-  models/   — pipelines (generate_table, sort_pipeline)
-  csrc/     — CUDA kernels
+  ops/      — rng/ (Threefry); sort/ (five sorters: abitonic, sbitonic,
+              satradix, gselect, xla; key limbs, autotune, dma_scatter's
+              chunk copy); scan/ (scan_new, single-pass and 3-phase scans,
+              segmented scans); exec/ (filter, sorted and dense GROUP BY,
+              join, window functions, top-k, DISTINCT)
+  models/   — pipelines: generate_table, sort_pipeline and four queries
+              (analytics_query, star_query, q1_query, rollup_query)
+  csrc/     — six CUDA sources: bitonic.cu, scan.cu, bandprobe.cu,
+              radix.cu, dense_agg.cu, chunk_copy.cu
 
 Quick start:
   from cl_ops_tpu_torch.ops.sort import sort_new

@@ -115,6 +115,10 @@ def sort_i32_cols(cols, *, num_keys: int | None = None,
     column in it) pass pad_safe=True; otherwise padding falls back to the
     total comparator.
 
+    Rows wider than the kernels' MAX_COLS columns, with a num_keys prefix
+    narrower than that, sort the prefix with a row index, and the payload
+    columns follow by one gather.
+
     block_elems and merge_elems override the geometry (bitonic.py). With
     CL_OPS_PSORT_AUTOTUNE=1 in the environment the rest of it comes from
     the on-card tuner (autotune.py, cached per device, length and column
@@ -122,6 +126,14 @@ def sort_i32_cols(cols, *, num_keys: int | None = None,
     Returns the reordered columns (same dtypes and lengths).
     """
     n = cols[0].shape[0]
+    if num_keys is not None and len(cols) > bk.MAX_COLS > num_keys:
+        idx = torch.arange(n, dtype=torch.int32, device=cols[0].device)
+        out = sort_i32_cols((*cols[:num_keys], idx), num_keys=num_keys,
+                            pad_safe=pad_safe, block_elems=block_elems,
+                            merge_elems=merge_elems)
+        perm = out[-1]
+        return (*out[:-1], *(from_i32(as_i32(c)[perm], c.dtype)
+                             for c in cols[num_keys:]))
     dts = [c.dtype for c in cols]
     bufs, padded = bk.pad_and_reshape([as_i32(c) for c in cols],
                                       [_PAD] * len(cols))

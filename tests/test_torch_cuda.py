@@ -8,7 +8,11 @@ value columns, empty and ragged build sides and several window starts; the
 block scans at lengths 0, 1 and ragged tails; rank_hist with short tiles,
 radix 4-256 and digits outside the bins; pair_cross at distances 1-32;
 whole_sort up to its capacity and past it; the five sorters against numpy,
-and autotune with its cache in a temporary file. Every CUDA call checks that
+and autotune with its cache in a temporary file; dense_agg at 1 to 1024
+groups with masks, u32 flips, float32 limbs and more reductions than one
+launch takes; chunk_copy with 1, 3 and 9 arrays, a partial last chunk and
+whole-sentinel slots; the dense GROUP BY, window functions, top-k and
+DISTINCT on the card against their CPU results. Every CUDA call checks that
 the kernel's launch counter moved, so no CUDA tensor reaches a plain
 version. Skips without CUDA. On a machine without JAX
 run it with `python -m pytest --noconftest tests/test_torch_cuda.py`.
@@ -551,3 +555,144 @@ def test_autotune_on_card(cuda, tmp_path, monkeypatch):
     got = psort.sort_i32_cols((col,))[0]
     assert torch.equal(got, torch.sort(col).values)
     assert len(json.loads(path.read_text())) == 1  # the same shape: cached
+
+
+# --- the dense GROUP BY (csrc/dense_agg.cu) and the run copy
+# (csrc/chunk_copy.cu) ----------------------------------------------------------
+
+def _dense_reductions(cols, n_extra=0):
+    """count, int32 sum/min/max, a flipped u32 min and max, float32 limbs'
+    min and max, and n_extra more sums (past one launch's 32)."""
+    i32, u32, f32 = cols
+    reds = [(None, "count", False), (i32, "sum", False), (i32, "min", False),
+            (i32, "max", False), (u32, "min", True), (u32, "max", True),
+            (f32, "min", False), (f32, "max", False)]
+    return reds + [(i32, "sum", False)] * n_extra
+
+
+@pytest.mark.parametrize("num_groups", [1, 4, 32, 200, 1024])
+@pytest.mark.parametrize("masked", [False, True])
+def test_dense_agg_matches_plain(cuda, num_groups, masked):
+    from cl_ops_tpu_torch.ops.exec import dense_agg as da
+    from cl_ops_tpu_torch.ops.sort import keys as keymod
+    rng = np.random.default_rng(num_groups)
+    n = 300_007  # not a multiple of any block
+    gid = torch.from_numpy(rng.integers(-3, num_groups + 3, n)
+                           .astype(np.int32))
+    mask = torch.from_numpy(rng.random(n) < 0.6) if masked else None
+    cols = (torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n)
+                             .astype(np.int32)),
+            torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n)
+                             .astype(np.int32)),
+            keymod.to_limbs(torch.from_numpy(
+                rng.standard_normal(n).astype(np.float32)))[0])
+    reds = _dense_reductions(cols, 30 if num_groups == 200 else 0)
+    on = {id(c): c.to(cuda) for c in cols}
+    da.reset_launches()
+    got = da.dense_agg(gid.to(cuda), None if mask is None else mask.to(cuda),
+                       [(None if c is None else on[id(c)], k, f)
+                        for c, k, f in reds], num_groups)
+    torch.cuda.synchronize()
+    assert da.launches["dense_agg"] == (2 if len(reds) > 32 else 1)
+    assert torch.equal(got.cpu(), da.dense_agg_plain(gid, mask, reds,
+                                                     num_groups))
+
+
+@pytest.mark.parametrize("n", [0, 1, 5000])
+def test_dense_agg_all_masked_and_empty(cuda, n):
+    from cl_ops_tpu_torch.ops.exec import dense_agg as da
+    gid = torch.zeros(n, dtype=torch.int32)
+    x = torch.arange(n, dtype=torch.int32)
+    reds = _dense_reductions((x, x, x))
+    got = da.dense_agg(gid.to(cuda), torch.zeros(n, dtype=torch.bool,
+                                                 device=cuda),
+                       [(None if c is None else c.to(cuda), k, f)
+                        for c, k, f in reds], 4)
+    want = da.dense_agg_plain(gid, torch.zeros(n, dtype=torch.bool), reds, 4)
+    assert torch.equal(got.cpu(), want)
+    assert (want[0] == 0).all()
+
+
+@pytest.mark.parametrize("n_arrays", [1, 3, 9])
+def test_chunk_copy_matches_plain(cuda, n_arrays):
+    from cl_ops_tpu_torch.ops.sort import dma_scatter as ds
+    rng = np.random.default_rng(n_arrays)
+    n = 40 * ds.CHUNK + 333  # a partial last chunk
+    cuts = np.sort(rng.choice(np.arange(1, n), 60, replace=True))
+    starts = np.concatenate([[0], cuts]).astype(np.int32)
+    lengths = (np.concatenate([cuts, [n]]) - starts).astype(np.int32)
+    qlen = (lengths + ds.CHUNK - 1) // ds.CHUNK * ds.CHUNK
+    qstarts = (np.cumsum(qlen) - qlen).astype(np.int32)
+    n_chunks = n // ds.CHUNK + len(lengths) + 4  # whole-sentinel slots
+    params = ds.plan_run_chunks(*(torch.from_numpy(a) for a in
+                                  (starts, qstarts, lengths)),
+                                n_chunks_static=n_chunks)
+    arrs = [torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n)
+                             .astype(np.int32)) for _ in range(n_arrays)]
+    ds.reset_launches()
+    got = ds.chunk_copy([a.to(cuda) for a in arrs], params.to(cuda),
+                        n_chunks=n_chunks)
+    torch.cuda.synchronize()
+    assert ds.launches["chunk_copy"] == (2 if n_arrays > 8 else 1)
+    want = ds.chunk_copy_plain(arrs, params, n_chunks)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    for s, q, ln in zip(starts, qstarts, lengths):
+        assert torch.equal(got[0][q:q + ln].cpu(), arrs[0][s:s + ln])
+
+
+def test_new_operators_on_card_match_cpu(cuda):
+    """The dense GROUP BY, window_cols in both forms, top_k through both
+    of its branches, and distinct: CUDA tensors against CPU tensors."""
+    from cl_ops_tpu_torch.ops.exec import (dense_agg, distinct,
+                                           group_aggregate_dense_cols, top_k,
+                                           topk, window_cols)
+    from cl_ops_tpu_torch.ops.scan import segmented
+    rng = np.random.default_rng(44)
+    n = 200_000
+    gid = rng.integers(-1, 9, n).astype(np.int32)
+    qty = rng.integers(1, 51, n).astype(np.int32)
+    price = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    disc = (rng.integers(0, 11, n) * 0.25).astype(np.float32)
+    mask = rng.random(n) < 0.98
+    host = [interop.to_torch(a, "cpu") for a in (gid, qty, price, disc, mask)]
+    dev = [t.to(cuda) for t in host]
+    aggs = ("sum", "mean", "min", "max", "count", "max", "min")
+
+    def dense(t):
+        return group_aggregate_dense_cols(
+            t[0], (t[1], t[1], t[2], t[2], t[1], t[3], t[3]), aggs,
+            num_groups=8, valid_mask=t[4])
+    dense_agg.reset_launches()
+    _same(dense(dev), dense(host))
+    assert dense_agg.launches["dense_agg"] == 1
+
+    keys = interop.to_torch(rng.integers(0, 3000, n).astype(np.uint32), "cpu")
+    order = interop.to_torch(rng.integers(0, 100, n).astype(np.int32), "cpu")
+    waggs = ("sum", "row_number", "rank", "dense_rank", "lag", "min",
+             "mean", "count")
+    wvals = (host[1], None, None, None, host[2], host[3], host[3], None)
+
+    def window(k, o, v, **kw):
+        return window_cols(k, o, v, waggs, **kw)
+    segmented.reset_launches()
+    on = tuple(None if v is None else v.to(cuda) for v in wvals)
+    _same(window(keys.to(cuda), order.to(cuda), on),
+          window(keys, order, wvals))
+    _same(window(keys.to(cuda), order.to(cuda), on, sorted_output=True),
+          window(keys, order, wvals, sorted_output=True))
+    assert segmented.launches["seg_scan_carry"] > 0
+
+    spread = (np.arange(n, dtype=np.int64) * 7919 % n).astype(np.uint32)
+    flood = np.zeros(n, np.uint32)  # 90% of the rows tie at the minimum
+    flood[: n // 10] = rng.integers(1, 1 << 20, n // 10)
+    for vals, branch in ((spread, "fast"), (flood, "exact")):
+        for largest in (False, True):
+            if largest and branch == "exact":  # the ties at the maximum
+                vals = (np.uint32(1 << 20) - vals).astype(np.uint32)
+            v = interop.to_torch(vals, "cpu")
+            got = top_k(v.to(cuda), 16, dev[1], largest=largest)
+            assert topk.last_branch == branch
+            _same(got, top_k(v, 16, host[1], largest=largest))
+    _same(distinct(keys.to(cuda), capacity=4096),
+          distinct(keys, capacity=4096))
