@@ -106,7 +106,7 @@ def cuda_ms(fn, reps, before=None):
 
 KERNEL_GROUPS = (("bitonic", ("block_sort", "multi_stage", "pair_cross",
                               "block_merge", "whole_sort")),
-                 ("scan", ("scan_tiles", "scan_block_tiles")),
+                 ("scan", ("scan_tiles", "carry_tiles", "scan_block_tiles")),
                  ("join", ("probe_band",)),
                  ("radix", ("rank_hist",)),
                  ("dense", ("dense_agg",)),
@@ -571,8 +571,9 @@ def join_cells(dev, reset, count):
 
 def sort_family_kernel_records(dev):
     """rank_hist over 16M digits at radix 16 and 256, pair_cross at J = 1,
-    16, 32 and 1024 over 16M u32 keys, and whole_sort at 1M and at its
-    capacity (2^21 keys), each against its plain version bit for bit."""
+    16, 32 and 1024 over 16M u32 keys, and whole_sort at 1M, at its
+    capacity (2^21 keys) and over 2^19 rows of three columns with two
+    keys, each against its plain version and the library bit for bit."""
     import torch
     from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
     from cl_ops_tpu_torch.ops.sort import radix_kernels as rk
@@ -635,15 +636,49 @@ def sort_family_kernel_records(dev):
 
         def restore(work=work, xw=xw):
             work[0].copy_(xw)
+        sl, rows = bk.whole_geometry(wn, 1)
         recs[f"whole_sort {wn}"] = kernel_record(
             "whole_sort", "cl_ops_tpu_torch/csrc/bitonic.cu", err,
             cuda_ms(lambda: bk.whole_sort_(work), 7, restore),
             cuda_ms(lambda: bk.whole_sort_plain(work, 1), 3, restore),
             2 * 4 * wn, 2 * (wn // 2) * bk.sbitonic_steps(wn),
             cuda_ms(lambda: torch.sort(xw), 7),
-            f"n={wn} cols=1 slice={bk.whole_slice(wn, 1)} "
-            f"blocks={wn // bk.whole_slice(wn, 1)}")
+            f"n={wn} cols=1 slice={sl} rows/thread={rows} blocks={wn // sl}")
         del work, ref, xw
+    # three columns, two of them keys: (key, key, row index) at the most
+    # rows three columns hold; the library sorts the two keys as one int64
+    # and gathers the columns
+    wn, nk = bk.WHOLE_MAX // 4, 2
+    src = [x[:wn].clone(), x[wn:2 * wn].clone(),
+           torch.arange(wn, dtype=torch.int32, device=dev)]
+    work, ref = [c.clone() for c in src], [c.clone() for c in src]
+    bk.whole_sort_(work, nk)
+    bk.whole_sort_plain(ref, nk)
+    torch.cuda.synchronize()
+    err = max_abs_err(work, ref)
+
+    def lib_sort3():
+        key = (src[0].to(torch.int64) << 32) | (
+            src[1].to(torch.int64) + (1 << 31))
+        order = torch.sort(key, stable=True).indices
+        return [c[order] for c in src]
+    if err or not all(torch.equal(a, b) for a, b in zip(work, lib_sort3())):
+        raise AssertionError(f"whole_sort n={wn} x 3: kernel differs from its "
+                             f"plain version ({err}) or from torch.sort")
+
+    def restore3(work=work):
+        for w, c in zip(work, src):
+            w.copy_(c)
+    sl, rows = bk.whole_geometry(wn, 3)
+    recs[f"whole_sort {wn}x3"] = kernel_record(
+        "whole_sort", "cl_ops_tpu_torch/csrc/bitonic.cu", err,
+        cuda_ms(lambda: bk.whole_sort_(work, nk), 7, restore3),
+        cuda_ms(lambda: bk.whole_sort_plain(work, nk), 3, restore3),
+        2 * 3 * 4 * wn, 2 * nk * (wn // 2) * bk.sbitonic_steps(wn),
+        cuda_ms(lib_sort3, 7),
+        f"n={wn} cols=3 num_keys={nk} slice={sl} rows/thread={rows} "
+        f"blocks={wn // sl}")
+    del work, ref, src
     return recs
 
 
@@ -771,6 +806,7 @@ def sort_family_cells(dev, reset, count):
         def single():
             return s.sort_with_device_data(d1)
         out, launches = drive(tag, single)
+        check(f"{tag}: one whole_sort launch", launches["whole_sort"] == 1)
         check32(tag, out, torch.sort(limb1).values)
         check(f"{tag}: equals the fused schedule bit for bit",
               torch.equal(out.view(torch.int32), fused.view(torch.int32)))
@@ -1477,6 +1513,7 @@ def main() -> int:
         gk, tbl, cnt = groupby()
         torch.cuda.synchronize()
         gb_launches = count("group by")
+        check("group by runs scan_carry", gb_launches["scan_carry"] > 0)
         present = np.nonzero(np.bincount(h_keys, minlength=GROUPBY_G))[0]
         sums = np.bincount(h_keys, weights=h_vals,
                            minlength=GROUPBY_G)[present]  # exact: < 2^53
@@ -1512,6 +1549,7 @@ def main() -> int:
         a_cnt, a_table = analytics()
         torch.cuda.synchronize()
         a_launches = count("analytics_query")
+        check("analytics runs scan_carry", a_launches["scan_carry"] > 0)
         hk, hv = (interop.to_numpy(t) for t in
                   pipeline.generate_table(ANALYTICS_N, SEED, device="cuda"))
         m = hv < 102
@@ -1545,6 +1583,7 @@ def main() -> int:
         q_cnt, q_gk, q_tabs, q_gcnt = q1()
         torch.cuda.synchronize()
         q_launches = count("q1")
+        check("q1 runs scan_carry", q_launches["scan_carry"] > 0)
         ids = torch.arange(Q1_N, dtype=torch.int32, device=dev)
         keys, qty, price = (
             (interop.widen_u32(threefry.random_bits(SEED, ids, c)) % mod)
@@ -1599,6 +1638,8 @@ def main() -> int:
         w_gk, (w_sum, w_cnt), w_g = wide()
         torch.cuda.synchronize()
         w_launches = count("int64 measures")
+        check("int64 measures run scan_carry_wide",
+              w_launches["scan_carry_wide"] > 0)
         uniq = np.unique(hk)
         g = len(uniq)
         sums = np.zeros(Q1_G, np.int64)

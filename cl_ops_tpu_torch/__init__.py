@@ -28,8 +28,10 @@ Quick start:
 """
 
 from cl_ops_tpu_torch.core import dtypes, errors, registry  # noqa: F401
+from cl_ops_tpu_torch.defer import DeferredOverflowError, verify_deferred
 from cl_ops_tpu_torch.utils import bits  # noqa: F401
 
 __version__ = "0.1.0"
 
-__all__ = ["bits", "dtypes", "errors", "registry", "__version__"]
+__all__ = ["DeferredOverflowError", "bits", "dtypes", "errors", "registry",
+           "verify_deferred", "__version__"]

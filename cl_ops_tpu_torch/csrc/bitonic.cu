@@ -19,7 +19,7 @@
 // steps per such sweep, and the one that works in device memory
 // (pair_cross) runs one step per sweep with neighbouring threads on
 // neighbouring addresses. whole_sort runs the whole network in one
-// cooperative launch.
+// cooperative launch, with most steps in registers.
 //
 // Each entry point launches on the stream it is given, allocates nothing and
 // returns cudaGetLastError() (0 on success).
@@ -27,6 +27,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -128,8 +130,7 @@ __global__ void multi_stage_kernel(Cols cols, int n_cols, int num_keys,
 }
 
 // One compare-exchange of step (k, j) in device memory: pair p is
-// (lo, lo + j). The pair_cross kernel and the device-memory steps of
-// whole_sort run it.
+// (lo, lo + j). The pair_cross kernel runs it.
 __device__ __forceinline__ void pair_step(const Cols& cols, int n_cols,
                                           int num_keys, unsigned p,
                                           unsigned k, unsigned j) {
@@ -190,40 +191,345 @@ __global__ void block_merge_kernel(Cols cols, int n_cols, int num_keys,
 }
 
 // whole_sort: replaces bitonic_kernels.py _vmem_sort_kernel, the whole
-// network in one launch. One Hopper block's shared memory holds far less
-// than the TPU kernel's 8 MB, so this is a cooperative launch of
-// n / slice co-resident blocks, each holding a `slice`-row slice of every
-// column in shared memory. Stages K <= slice run there (block_sort's
-// global-index direction rule); each later stage K stores the slices, runs
-// its steps J >= slice in device memory (each block takes its slice/2
-// pairs) between grid-wide barriers, reloads its slice and runs the steps
-// J < slice in shared memory. So it is the fused schedule's network in the
-// fused schedule's order, and its output equals bitonic_sort_2d's bit for
-// bit. Bound: one read and one write of every column; the device-memory
-// steps stay in the 50 MB L2 (the problem is at most 8 MB), and at small n
-// grid-barrier latency, not bytes, sets the time.
-__global__ void __launch_bounds__(MAX_THREADS)
-    whole_sort_kernel(Cols cols, int n_cols, int num_keys, unsigned n,
-                      int slice) {
+// network in one cooperative launch of n / slice co-resident blocks. It runs
+// the fused schedule's network in the fused schedule's order (every step
+// (K, J), J = K/2 .. 1, of every stage K = 2 .. n), in pair form with the
+// global-index direction rule, so its output equals bitonic_sort_2d's bit
+// for bit; only the memory a step runs in differs. Bound: one read and one
+// write of every column, or, where larger, the network's compares; the
+// array (at most 8 MB) stays in the 50 MB L2 between its passes.
+//
+// Geometry (chosen by the caller, bitonic_kernels.whole_geometry): the
+// slice is a power of two of about n / 128 rows, so that the slices spread
+// over the card's 132 SMs, with slice^2 >= n and at most 512 threads a
+// block (the largest arrays take 256 blocks, two per SM). Each of its
+// slice / R threads holds R consecutive rows of every column in registers
+// (R = 16 at one column, fewer at more columns, 1 for slices under 32 R
+// rows). A step at local distance d runs
+//   * d < R:        inside each thread, on its registers;
+//   * R <= d < 32R: between the lanes of a warp, by __shfl_xor_sync;
+//   * d >= 32R:     through shared memory (column-major, one pad word per
+//                   32 so that the blocked register loads are free of bank
+//                   conflicts): the steps at d >= T (the block's threads)
+//                   all in registers, each thread taking the R rows T
+//                   apart (one warp per register at one column and 8192
+//                   rows, so every such step), any below T one
+//                   __syncthreads per step.
+// A single column's compare-exchange is a min and a max (equal values:
+// the same bits either way); wider rows compare the key prefix and swap.
+// Stages K <= slice run on each block's own slice. A later stage K takes two
+// grid barriers, not one per step: phase A gathers into each block the rows
+// whose indices differ only in the bits K/2 .. slice that the steps
+// J >= slice touch (runs of L = slice^2 / K rows, one run per group member),
+// runs those steps there at local distances slice/2 .. L, and scatters them
+// back; after a barrier, phase B reloads the block's own slice and runs
+// J = slice/2 .. 1; a barrier follows before the next stage's gather.
+
+template <int NC>
+__device__ __forceinline__ int order_regs(const int32_t (&a)[NC],
+                                          const int32_t (&b)[NC],
+                                          int num_keys) {
+  int ord = 0;
+#pragma unroll
+  for (int c = NC - 1; c >= 0; --c)  // the first differing key decides
+    if (c < num_keys && a[c] != b[c]) ord = a[c] < b[c] ? -1 : 1;
+  return ord;
+}
+
+// Compare-exchange of rows a (the lower index) and b in pair form: they
+// swap, all columns together, only when strictly out of order for the
+// pair's direction. A single column gives the same values by min and max.
+template <int NC>
+__device__ __forceinline__ void cx(int32_t (&a)[NC], int32_t (&b)[NC],
+                                   bool asc, int num_keys) {
+  if constexpr (NC == 1) {
+    const int32_t lo = min(a[0], b[0]), hi = max(a[0], b[0]);
+    a[0] = asc ? lo : hi;
+    b[0] = asc ? hi : lo;
+  } else {
+    const int ord = order_regs<NC>(a, b, num_keys);
+    if (asc ? ord > 0 : ord < 0) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int32_t t = a[c];
+        a[c] = b[c];
+        b[c] = t;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned pad32(unsigned i) { return i + (i >> 5); }
+
+// Registers <-> the padded shared-memory slice (thread t: rows t*R .. +R-1).
+template <int NC, int R>
+__device__ __forceinline__ void regs_to_smem(const int32_t (&v)[NC][R],
+                                             int32_t* s, unsigned P) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[c * P + pad32(threadIdx.x * R + r)] = v[c][r];
+}
+
+template <int NC, int R>
+__device__ __forceinline__ void smem_to_regs(int32_t (&v)[NC][R],
+                                             const int32_t* s, unsigned P) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[c][r] = s[c * P + pad32(threadIdx.x * R + r)];
+}
+
+// One step at register distance D < R, where register r of this thread is
+// the row first + r * stride (stride 1: the blocked layout; 32R: the
+// transposed one).
+template <int D, int NC, int R>
+__device__ __forceinline__ void reg_step(int32_t (&v)[NC][R], int num_keys,
+                                         unsigned base, unsigned k,
+                                         unsigned first, unsigned stride) {
+  if constexpr (D < R) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r & D) continue;
+      int32_t a[NC], b[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        a[c] = v[c][r];
+        b[c] = v[c][r + D];
+      }
+      cx<NC>(a, b, ((base + first + r * stride) & k) == 0, num_keys);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        v[c][r] = a[c];
+        v[c][r + D] = b[c];
+      }
+    }
+  }
+}
+
+// The register steps at distances (D = R/2 .. 1) * stride that lie in
+// [d_last, d].
+template <int NC, int R>
+__device__ __forceinline__ void reg_steps(int32_t (&v)[NC][R], int num_keys,
+                                          unsigned base, unsigned k,
+                                          unsigned first, unsigned stride,
+                                          unsigned d, unsigned d_last) {
+#define CLO_REG_STEP(D)                                              \
+  if ((D) * stride <= d && (D) * stride >= d_last)                   \
+    reg_step<D>(v, num_keys, base, k, first, stride);
+  CLO_REG_STEP(8)
+  CLO_REG_STEP(4)
+  CLO_REG_STEP(2)
+  CLO_REG_STEP(1)
+#undef CLO_REG_STEP
+}
+
+// One step at distance R <= d < 32R between lanes d / R apart. Both lanes of
+// a pair compare (lower row, upper row) alike, so they agree on the swap.
+// The direction is the thread's: k > d >= R.
+template <int NC, int R>
+__device__ __forceinline__ void shfl_step(int32_t (&v)[NC][R], int num_keys,
+                                          unsigned base, unsigned k,
+                                          unsigned d, unsigned mask) {
+  const unsigned lx = d / R;
+  const bool upper = (threadIdx.x & lx) != 0;
+  const bool asc = ((base + (threadIdx.x & ~lx) * R) & k) == 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if constexpr (NC == 1) {
+      const int32_t o = __shfl_xor_sync(mask, v[0][r], lx);
+      v[0][r] = asc != upper ? min(v[0][r], o) : max(v[0][r], o);
+    } else {
+      int32_t o[NC], a[NC], b[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        o[c] = __shfl_xor_sync(mask, v[c][r], lx);
+        a[c] = upper ? o[c] : v[c][r];
+        b[c] = upper ? v[c][r] : o[c];
+      }
+      const int ord = order_regs<NC>(a, b, num_keys);
+      if (asc ? ord > 0 : ord < 0) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) v[c][r] = o[c];
+      }
+    }
+  }
+}
+
+// Steps at local distances d = d_first .. d_last (halving) of stage k over
+// the block's `S` rows; the local row i has global direction index
+// base + i. The rows come in registers (blocked layout), or in shared
+// memory when from_smem (after a __syncthreads), and leave in shared memory
+// when to_smem (the caller synchronises before reading other threads'
+// rows), else in registers. Steps at d >= 32R run in shared memory: those
+// at d >= T (the block's threads) in registers, each thread loading the R
+// rows t + m * T, between two __syncthreads; any at 32R <= d < T one pair
+// step per __syncthreads. The smaller distances run by shuffles, then
+// inside each thread.
+template <int NC, int R>
+__device__ void local_steps(int32_t (&v)[NC][R], int32_t* s, unsigned P,
+                            unsigned S, int num_keys, unsigned base,
+                            unsigned k, unsigned d_first, unsigned d_last,
+                            unsigned mask, bool from_smem, bool to_smem) {
+  const unsigned t = threadIdx.x;
+  unsigned d = d_first;
+  bool in_smem = from_smem;
+  if (d >= 32u * R && d >= d_last) {
+    if (!in_smem) {
+      __syncthreads();
+      regs_to_smem<NC, R>(v, s, P);
+      __syncthreads();
+    }
+    const unsigned T = blockDim.x;
+    if (d >= T && d >= d_last) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int m = 0; m < R; ++m) v[c][m] = s[c * P + pad32(t + m * T)];
+      reg_steps<NC, R>(v, num_keys, base, k, t, T, d, d_last);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int m = 0; m < R; ++m) s[c * P + pad32(t + m * T)] = v[c][m];
+      __syncthreads();
+      d = T / 2;
+    }
+    for (; d >= 32u * R && d >= d_last; d >>= 1) {
+      for (unsigned p = t; p < S / 2; p += T) {
+        const unsigned lo = ((p & ~(d - 1)) << 1) | (p & (d - 1));
+        const unsigned hi = lo + d;
+        int32_t a[NC], b[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          a[c] = s[c * P + pad32(lo)];
+          b[c] = s[c * P + pad32(hi)];
+        }
+        cx<NC>(a, b, ((base + lo) & k) == 0, num_keys);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          s[c * P + pad32(lo)] = a[c];
+          s[c * P + pad32(hi)] = b[c];
+        }
+      }
+      __syncthreads();
+    }
+    in_smem = true;
+  }
+  if (d >= d_last) {  // steps below 32R remain: in registers
+    if (in_smem) smem_to_regs<NC, R>(v, s, P);
+    in_smem = false;
+    for (; d >= (unsigned)R && d >= d_last; d >>= 1)
+      shfl_step<NC, R>(v, num_keys, base, k, d, mask);
+    reg_steps<NC, R>(v, num_keys, base, k, t * R, 1, d, d_last);
+  }
+  // each thread moves only its own rows here
+  if (to_smem && !in_smem) regs_to_smem<NC, R>(v, s, P);
+  if (!to_smem && in_smem) smem_to_regs<NC, R>(v, s, P);
+}
+
+// Global rows <-> the padded slice: local row g is global row
+// at + (g / run) * stride + g % run (run, stride powers of two). Runs of 4
+// rows or more move as 16-byte vectors where the columns are 16-byte
+// aligned (vec; at and stride are then multiples of 4).
+template <int NC, bool STORE>
+__device__ __forceinline__ void move_rows(const Cols& cols, int vec,
+                                          int32_t* s, unsigned P, unsigned S,
+                                          unsigned at, unsigned run,
+                                          unsigned stride) {
+  const unsigned lg = __ffs(run) - 1;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    int32_t* g_col = cols.p[c] + at;
+    int32_t* s_col = s + c * P;
+    if (vec && run >= 4) {
+      for (unsigned g = 4 * threadIdx.x; g < S; g += 4 * blockDim.x) {
+        int4* q = reinterpret_cast<int4*>(g_col + (g >> lg) * stride +
+                                          (g & (run - 1)));
+        const unsigned w = pad32(g);  // 4 rows of one 32-row line
+        if (STORE) {
+          *q = make_int4(s_col[w], s_col[w + 1], s_col[w + 2], s_col[w + 3]);
+        } else {
+          const int4 x = *q;
+          s_col[w] = x.x;
+          s_col[w + 1] = x.y;
+          s_col[w + 2] = x.z;
+          s_col[w + 3] = x.w;
+        }
+      }
+    } else {
+      for (unsigned g = threadIdx.x; g < S; g += blockDim.x) {
+        int32_t* q = g_col + (g >> lg) * stride + (g & (run - 1));
+        if (STORE)
+          *q = s_col[pad32(g)];
+        else
+          s_col[pad32(g)] = *q;
+      }
+    }
+  }
+}
+
+template <int NC>
+__device__ __forceinline__ void gather(const Cols& cols, int vec, int32_t* s,
+                                       unsigned P, unsigned S, unsigned at,
+                                       unsigned run, unsigned stride) {
+  move_rows<NC, false>(cols, vec, s, P, S, at, run, stride);
+}
+
+template <int NC>
+__device__ __forceinline__ void scatter(const Cols& cols, int vec,
+                                        int32_t* s, unsigned P, unsigned S,
+                                        unsigned at, unsigned run,
+                                        unsigned stride) {
+  move_rows<NC, true>(cols, vec, s, P, S, at, run, stride);
+}
+
+template <int NC, int R>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+    whole_sort_kernel(Cols cols, int vec, int num_keys, unsigned n,
+                      unsigned S) {
   extern __shared__ int32_t smem[];
   cg::grid_group grid = cg::this_grid();
-  unsigned base = blockIdx.x * (unsigned)slice;
-  unsigned half = (unsigned)slice / 2;
-  load_block(cols, smem, slice, base, n_cols);
-  for (unsigned k = 2; k <= (unsigned)slice; k <<= 1)
-    smem_steps(smem, slice, base, k, (int)(k >> 1), n_cols, num_keys);
-  for (unsigned k = 2u * slice; k <= n; k <<= 1) {
-    store_block(cols, smem, slice, base, n_cols);
+  const unsigned P = S + (S >> 5);  // padded column length
+  const unsigned mask =
+      blockDim.x >= 32 ? 0xFFFFFFFFu : (1u << blockDim.x) - 1;
+  const unsigned base = blockIdx.x * S;
+  int32_t v[NC][R];
+
+  gather<NC>(cols, vec, smem, P, S, base, S, S);
+  __syncthreads();
+  for (unsigned k = 2; k <= S; k <<= 1)
+    local_steps<NC, R>(v, smem, P, S, num_keys, base, k, k >> 1, 1, mask,
+                       k == 2, k == S);
+  // from here on the rows rest in shared memory between phases
+  for (unsigned k = 2 * S; k <= n; k <<= 1) {
+    __syncthreads();
+    scatter<NC>(cols, vec, smem, P, S, base, S, S);
     grid.sync();
-    for (unsigned j = k >> 1; j >= (unsigned)slice; j >>= 1) {
-      for (unsigned t = threadIdx.x; t < half; t += blockDim.x)
-        pair_step(cols, n_cols, num_keys, blockIdx.x * half + t, k, j);
-      grid.sync();
-    }
-    load_block(cols, smem, slice, base, n_cols);
-    smem_steps(smem, slice, base, k, slice >> 1, n_cols, num_keys);
+    // phase A: pairs (h, l) of high bits (>= k) and low bits (< S), q =
+    // h * S + l; this block takes q in [blockIdx.x * L, + L), one h
+    const unsigned L = S / (k / S);
+    const unsigned q0 = blockIdx.x * L;
+    const unsigned at = (q0 / S) * k + q0 % S;
+    gather<NC>(cols, vec, smem, P, S, at, L, S);
+    __syncthreads();
+    local_steps<NC, R>(v, smem, P, S, num_keys, (q0 / S) * k, k, S >> 1, L,
+                       mask, true, true);
+    __syncthreads();
+    scatter<NC>(cols, vec, smem, P, S, at, L, S);
+    grid.sync();
+    // phase B: steps J = S/2 .. 1 on the block's own slice
+    gather<NC>(cols, vec, smem, P, S, base, S, S);
+    __syncthreads();
+    local_steps<NC, R>(v, smem, P, S, num_keys, base, k, S >> 1, 1, mask,
+                       true, true);
   }
-  store_block(cols, smem, slice, base, n_cols);
+  __syncthreads();
+  scatter<NC>(cols, vec, smem, P, S, base, S, S);
+}
+
+// Rows per thread of whole_sort at nc columns (1 for small slices).
+static constexpr int whole_rows(int nc) {
+  return nc == 1 ? 16 : nc == 2 ? 8 : nc <= 4 ? 4 : 2;
 }
 
 static Cols make_cols(void* const* ptrs, int n_cols) {
@@ -293,33 +599,88 @@ extern "C" int clo_block_merge(void* const* ptrs, int n_cols, int num_keys,
 // The grid of n / slice blocks must be co-resident, or it would deadlock at
 // its first barrier instead of failing: checked here, on the host, before
 // the launch, against the occupancy of this geometry on the current device.
-// Returns cudaErrorCooperativeLaunchTooLarge when it is not.
-extern "C" int clo_whole_sort(void* const* ptrs, int n_cols, int num_keys,
-                              int n, int slice, void* stream) {
-  size_t smem = (size_t)n_cols * slice * sizeof(int32_t);
-  int threads = threads_for(slice);
-  int err = set_smem(whole_sort_kernel, smem);
+// Returns cudaErrorCooperativeLaunchTooLarge when it is not. The device's
+// facts, the kernel's shared-memory attribute and its occupancy are looked
+// up once per (kernel, device, geometry), not on every call: each lookup
+// costs microseconds of host time that the card would spend idle.
+template <int NC, int R>
+static int launch_whole(Cols cols, int num_keys, unsigned n, unsigned slice,
+                        cudaStream_t stream) {
+  auto kernel = whole_sort_kernel<NC, R>;
+  unsigned threads = slice / R;
+  if (slice < (unsigned)R || threads > MAX_THREADS || slice > n ||
+      (unsigned long long)slice * slice < n)
+    return (int)cudaErrorInvalidValue;
+  size_t smem = (size_t)NC * (slice + slice / 32) * sizeof(int32_t);
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
   if (err) return err;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  err = (int)cudaGetDevice(&dev);
-  if (err) return err;
-  err = (int)cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err) return err;
-  err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev);
-  if (err) return err;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, whole_sort_kernel, threads, smem);
-  if (err) return err;
-  int blocks = n / slice;
-  if (!coop || blocks > per_sm * sms)
+  static std::mutex mu;
+  static int c_dev = -1, c_blocks = 0;
+  static unsigned c_threads = 0;
+  static size_t c_smem = 0;
+  int capacity;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (dev != c_dev || threads != c_threads || smem != c_smem) {
+      int coop = 0, sms = 0, per_sm = 0;
+      err = set_smem(kernel, smem);
+      if (!err)
+        err = (int)cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                          dev);
+      if (!err)
+        err = (int)cudaDeviceGetAttribute(
+            &sms, cudaDevAttrMultiProcessorCount, dev);
+      if (!err)
+        err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, (int)threads, smem);
+      if (err) return err;
+      c_dev = dev;
+      c_threads = threads;
+      c_smem = smem;
+      c_blocks = coop ? per_sm * sms : 0;
+    }
+    capacity = c_blocks;
+  }
+  unsigned blocks = n / slice;
+  if (blocks > (unsigned)capacity)
     return (int)cudaErrorCooperativeLaunchTooLarge;
-  Cols cols = make_cols(ptrs, n_cols);
-  unsigned un = (unsigned)n;
-  void* args[] = {&cols, &n_cols, &num_keys, &un, &slice};
-  err = (int)cudaLaunchCooperativeKernel((void*)whole_sort_kernel, blocks,
-                                         threads, args, smem,
-                                         (cudaStream_t)stream);
+  int vec = 1;  // every column 16-byte aligned
+  for (int c = 0; c < NC; ++c)
+    vec &= reinterpret_cast<uintptr_t>(cols.p[c]) % 16 == 0;
+  void* args[] = {&cols, &vec, &num_keys, &n, &slice};
+  err = (int)cudaLaunchCooperativeKernel((void*)kernel, blocks, threads, args,
+                                         smem, stream);
   if (err) return err;
   return (int)cudaGetLastError();
+}
+
+template <int NC>
+static int launch_whole_rows(Cols cols, int num_keys, unsigned n,
+                             unsigned slice, int rows, cudaStream_t stream) {
+  if (rows == whole_rows(NC))
+    return launch_whole<NC, whole_rows(NC)>(cols, num_keys, n, slice, stream);
+  if (rows == 1) return launch_whole<NC, 1>(cols, num_keys, n, slice, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Rows per thread of the whole_sort kernels at n_cols columns.
+extern "C" int clo_whole_rows(int n_cols) { return whole_rows(n_cols); }
+
+extern "C" int clo_whole_sort(void* const* ptrs, int n_cols, int num_keys,
+                              int n, int slice, int rows, void* stream) {
+  Cols c = make_cols(ptrs, n_cols);
+  unsigned un = (unsigned)n, us = (unsigned)slice;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (n_cols) {
+    case 1: return launch_whole_rows<1>(c, num_keys, un, us, rows, st);
+    case 2: return launch_whole_rows<2>(c, num_keys, un, us, rows, st);
+    case 3: return launch_whole_rows<3>(c, num_keys, un, us, rows, st);
+    case 4: return launch_whole_rows<4>(c, num_keys, un, us, rows, st);
+    case 5: return launch_whole_rows<5>(c, num_keys, un, us, rows, st);
+    case 6: return launch_whole_rows<6>(c, num_keys, un, us, rows, st);
+    case 7: return launch_whole_rows<7>(c, num_keys, un, us, rows, st);
+    case 8: return launch_whole_rows<8>(c, num_keys, un, us, rows, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

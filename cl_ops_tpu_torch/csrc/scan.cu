@@ -9,29 +9,32 @@
 // _seg_carry_kernel. Those carried a running total from one grid step to the
 // next, which works only because a TPU core runs its grid in order. Here
 // blocks run in any order, so the carry becomes a decoupled look-back:
+// each block takes its tile index from an atomic ticket, not from blockIdx,
+// so every tile before it has already started and a block that waits on a
+// predecessor can never wait on one that is not running.
 //
-//   * Each block takes its tile index from an atomic ticket, not from
-//     blockIdx, so every tile before it has already started and a block that
-//     waits on a predecessor can never wait on one that is not running.
-//   * A tile scans its TILE elements in registers (warp shuffles, then one
-//     warp over the per-warp totals), publishes its aggregate (flag AGG),
-//     looks back over its predecessors 32 at a time with warp 0, and then
-//     publishes its inclusive prefix (flag PREFIX). A value is written before
-//     its flag with a __threadfence() between them, and read after its flag
-//     with a __threadfence() between them.
-//   * Both scans are scans of (value, flag) pairs under the operator
-//       (v1, f1) (x) (v2, f2) = (f2 ? v2 : v1 (+) v2,  f1 | f2),
-//     which is associative. The plain sum has no flags; a PREFIX status
-//     enters the look-back as a pair with the flag set, since it already
-//     holds everything before it, and so ends the look-back. In the
-//     segmented scan a flag inside a window of predecessors ends it too.
+// Two designs of it live here:
+//
+//   * seg_scan_carry (scan_tiles, below): 4096-element tiles, warp-striped
+//     4-byte loads, a (value, flag) pair scan per item, and a status split
+//     in separate words: a value is written before its flag with a
+//     __threadfence() between them, and read after its flag with a
+//     __threadfence() between them. The pair operator
+//       (v1, f1) (x) (v2, f2) = (f2 ? v2 : v1 (+) v2,  f1 | f2)
+//     is associative; a PREFIX status enters the look-back as a pair with
+//     the flag set, and a segment flag inside a window of predecessors ends
+//     the look-back too.
+//   * scan_carry (carry_tiles, further down): the plain sum, redesigned for
+//     this card: 64 KB tiles of 16-byte loads, a scan within each thread's
+//     contiguous items, and a status word that packs flag and value, so
+//     that one load reads a predecessor's state and no fence is needed.
 //
 // Bound: each input element is read once and each output written once:
 // 8n bytes for the 32-bit sum, 16n for the 64-bit sum, and 12n for the
 // segmented scan of 4-byte values with int32 flags. The status words add
-// 24 bytes per 4096-element tile and are zeroed by the caller. Loads and
-// stores are warp-striped (lane j of a warp touches element base + 32k + j),
-// so every access of a warp is one contiguous run whatever the alignment.
+// 24 bytes per 4096-element tile (segmented; the caller zeroes them for
+// each call) or 8 per 16384 (32-bit sum) / 16 per 8192 (64-bit sum; zeroed
+// once, and cleared by each call's last block for the next call).
 //
 // Integer sums are taken in uint32_t/uint64_t, where wrapping is defined.
 // f32 min/max propagate NaN, as torch.minimum/maximum do; +0 and -0 compare
@@ -40,6 +43,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 #define THREADS 512
 #define WARPS (THREADS / 32)
@@ -317,6 +322,310 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// --- scan_carry: the plain sum, redesigned for Hopper ------------------------
+//
+// A tile is C_THREADS threads x C_VEC 16-byte vectors: 64 KB, so 16384
+// 32-bit or 8192 64-bit elements (a 256M-element 32-bit scan walks 16384
+// tiles, a quarter of scan_tiles' count). Each warp loads its 4 KB with
+// uint4 loads, lane j taking vector k * 32 + j (each instruction reads 512
+// contiguous bytes), into shared memory, and reads it back blocked: thread
+// `lane` takes vectors lane * C_VEC .. + C_VEC - 1, so its items are
+// contiguous. The 16-byte slots are XOR-swizzled (swz) so that both the
+// striped and the blocked accesses are free of bank conflicts. Each thread
+// sums its items, the warp scans the 32 thread totals (5 shuffles), warp 0
+// scans the 16 warp totals, publishes the tile's aggregate, looks back and
+// hands every warp its base; each thread then runs its items once more and
+// the tile leaves the way it came, through shared memory, as uint4 stores.
+// A warp whose 4 KB runs past n, or a call whose pointers are not 16-byte
+// aligned, loads and stores element by element through the same slots.
+//
+// Status: per tile Carry<V>::WORDS 64-bit words, each the 32-bit flag (NONE,
+// AGG, PREFIX) in its high half and a 32-bit part of the value in its low
+// half. A publish is one store (v2 for 64-bit sums) and a read one load;
+// every 64-bit word is single-copy atomic, so a 32-bit sum's flag and value
+// always arrive together. A 64-bit sum's two words may arrive from two
+// publishes (its AGG and later its PREFIX); each flag value is published
+// once per tile, so a read whose two flags agree holds both halves of one
+// publish, and one whose flags differ is read again. Hence no fence: the
+// only data a tile hands on is in its status words. The look-back runs in
+// warp 0: each lane loads C_LOOKAHEAD predecessors at once (128 in all, one
+// round trip to L2), the warp sums them 32 at a time back to the nearest
+// PREFIX, waiting with __nanosleep backoff (32 ns doubling to C_SLEEP_MAX)
+// while one of the 32 has published nothing.
+
+#define C_THREADS 512
+#define C_VEC 8        // uint4 per thread
+#define C_LOOKAHEAD 4  // windows of 32 predecessors read per round trip
+#define C_SLEEP_MAX 128  // ns, the longest backoff of the look-back spin
+#define C_WARPS (C_THREADS / 32)
+#define C_TILE_BYTES (C_THREADS * C_VEC * 16)
+
+template <class V>
+struct Carry {
+  static constexpr int PER_VEC = 16 / (int)sizeof(V);
+  static constexpr int items = C_VEC * PER_VEC;  // per thread
+  static constexpr int tile = C_THREADS * items;
+  static constexpr int WORDS = (int)sizeof(V) / 4;  // status words per tile
+};
+
+static long long carry_tiles_of(long long n, int value_bytes) {
+  long long tile = (long long)C_TILE_BYTES / value_bytes;
+  return (n + tile - 1) / tile;
+}
+
+// the tile ticket and the count of finished tiles (padded to 16 bytes),
+// then WORDS 64-bit words per tile
+static long long carry_status_bytes(long long n, int value_bytes) {
+  return 16 + 2LL * value_bytes * carry_tiles_of(n, value_bytes);
+}
+
+// The physical 16-byte slot of logical slot s in a warp's region of
+// 32 * C_VEC slots.
+__device__ __forceinline__ int swz(int s) { return s ^ ((s >> 3) & 7); }
+
+__device__ __forceinline__ unsigned long long pack_word(unsigned flag,
+                                                        unsigned part) {
+  return ((unsigned long long)flag << 32) | part;
+}
+
+__device__ __forceinline__ void publish(unsigned long long* w, unsigned flag,
+                                        unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(w), "l"(pack_word(flag, v)) : "memory");
+}
+
+__device__ __forceinline__ void publish(unsigned long long* w, unsigned flag,
+                                        unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.v2.u64 [%0], {%1, %2};"
+               :: "l"(w), "l"(pack_word(flag, (unsigned)v)),
+                  "l"(pack_word(flag, (unsigned)(v >> 32))) : "memory");
+}
+
+// The flag a tile's status holds (ST_NONE while it is torn), and its value.
+__device__ __forceinline__ unsigned peek(const unsigned long long* w,
+                                         unsigned& v) {
+  unsigned long long a;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(a) : "l"(w) : "memory");
+  v = (unsigned)a;
+  return (unsigned)(a >> 32);
+}
+
+__device__ __forceinline__ unsigned peek(const unsigned long long* w,
+                                         unsigned long long& v) {
+  unsigned long long a, b;
+  asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];"
+               : "=l"(a), "=l"(b) : "l"(w) : "memory");
+  v = ((b & 0xFFFFFFFFull) << 32) | (a & 0xFFFFFFFFull);
+  unsigned fa = (unsigned)(a >> 32), fb = (unsigned)(b >> 32);
+  return fa == fb ? fa : (unsigned)ST_NONE;
+}
+
+// Run by all 32 lanes of one warp: the sum of every element before `tile`
+// (> 0), from its predecessors' statuses back to the nearest PREFIX.
+template <class V>
+__device__ V carry_sum_back(const unsigned long long* st, long long tile,
+                            int lane) {
+  constexpr int W = Carry<V>::WORDS;
+  V acc = V(0);
+  for (long long w = tile - 1;; w -= 32 * C_LOOKAHEAD) {
+    V v[C_LOOKAHEAD];
+    unsigned f[C_LOOKAHEAD];
+#pragma unroll
+    for (int u = 0; u < C_LOOKAHEAD; ++u) {
+      const long long j = w - 32 * u - lane;  // lane 0 is the nearest
+      v[u] = V(0);
+      f[u] = ST_PREFIX;  // before tile 0: nothing, and stop
+      if (j >= 0) f[u] = peek(st + j * W, v[u]);
+    }
+    bool done = false;
+#pragma unroll
+    for (int u = 0; u < C_LOOKAHEAD; ++u) {
+      if (done) continue;  // warp-uniform
+      const long long j = w - 32 * u - lane;
+      for (unsigned ns = 32; __any_sync(FULL, f[u] == ST_NONE);
+           ns = ns < C_SLEEP_MAX ? 2 * ns : ns) {
+        __nanosleep(ns);
+        if (f[u] == ST_NONE) f[u] = peek(st + j * W, v[u]);
+      }
+      const unsigned pre = __ballot_sync(FULL, f[u] == ST_PREFIX);
+      const int stop = pre ? __ffs(pre) - 1 : 31;
+      V part = lane <= stop ? v[u] : V(0);
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(FULL, part, d);
+      acc += part;
+      done = pre != 0;
+    }
+    if (done) return acc;
+  }
+}
+
+// Run by all 32 lanes of warp 0. Publishes the tile's aggregate, sums its
+// predecessors back to the nearest PREFIX, publishes the tile's inclusive
+// prefix, and returns the sum of every element before the tile.
+template <class V>
+__device__ V carry_look_back(unsigned long long* st, long long tile, V agg,
+                             int lane) {
+  constexpr int W = Carry<V>::WORDS;
+  if (tile == 0) {
+    if (lane == 0) publish(st, (unsigned)ST_PREFIX, agg);
+    return V(0);
+  }
+  if (lane == 0) publish(st + tile * W, (unsigned)ST_AGG, agg);
+  const V acc = carry_sum_back<V>(st, tile, lane);
+  if (lane == 0) publish(st + tile * W, (unsigned)ST_PREFIX, acc + agg);
+  return acc;
+}
+
+template <class V>
+__global__ void __launch_bounds__(C_THREADS, 2)
+    carry_tiles(const V* __restrict__ x, V* __restrict__ out, long long n,
+                int exclusive, int aligned, unsigned* ticket,
+                unsigned long long* st) {
+  constexpr int PV = Carry<V>::PER_VEC;
+  constexpr int IT = Carry<V>::items;
+  constexpr int WARP_ITEMS = 32 * IT;
+  extern __shared__ uint4 s_vec[];  // C_WARPS regions of 32 * C_VEC slots
+  __shared__ unsigned s_tile;
+  __shared__ V s_w[C_WARPS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const long long tile = s_tile;
+  const long long wbase =
+      tile * Carry<V>::tile + (long long)warp * WARP_ITEMS;
+  uint4* sw = s_vec + warp * (32 * C_VEC);
+  V* se = reinterpret_cast<V*>(sw);
+  const bool whole = aligned && wbase + WARP_ITEMS <= n;  // warp-uniform
+
+  if (whole) {
+    const uint4* src = reinterpret_cast<const uint4*>(x + wbase);
+#pragma unroll
+    for (int k = 0; k < C_VEC; ++k) sw[swz(k * 32 + lane)] = src[k * 32 + lane];
+  } else {
+    for (int e = lane; e < WARP_ITEMS; e += 32) {
+      const long long i = wbase + e;
+      se[swz(e / PV) * PV + e % PV] = i < n ? x[i] : V(0);
+    }
+  }
+  __syncwarp();
+  V a[IT];
+#pragma unroll
+  for (int k = 0; k < C_VEC; ++k) {
+    const uint4 q = sw[swz(lane * C_VEC + k)];
+    const V* qv = reinterpret_cast<const V*>(&q);
+#pragma unroll
+    for (int m = 0; m < PV; ++m) a[k * PV + m] = qv[m];
+  }
+
+  V t = V(0);  // the thread's total
+#pragma unroll
+  for (int i = 0; i < IT; ++i) t += a[i];
+  V inc = t;  // inclusive scan of the warp's thread totals
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const V o = __shfl_up_sync(FULL, inc, d);
+    if (lane >= d) inc += o;
+  }
+  if (lane == 31) s_w[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const V wv = lane < C_WARPS ? s_w[lane] : V(0);
+    V winc = wv;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const V o = __shfl_up_sync(FULL, winc, d);
+      if (lane >= d) winc += o;
+    }
+    const V agg = __shfl_sync(FULL, winc, C_WARPS - 1);
+    const V before = carry_look_back<V>(st, tile, agg, lane);
+    if (lane < C_WARPS) s_w[lane] = before + (winc - wv);
+  }
+  __syncthreads();
+
+  V run = s_w[warp] + (inc - t);  // the sum of everything before a[0]
+#pragma unroll
+  for (int i = 0; i < IT; ++i) {
+    const V xi = a[i];
+    if (exclusive) {
+      a[i] = run;
+      run += xi;
+    } else {
+      run += xi;
+      a[i] = run;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < C_VEC; ++k) {
+    uint4 q;
+    V* qv = reinterpret_cast<V*>(&q);
+#pragma unroll
+    for (int m = 0; m < PV; ++m) qv[m] = a[k * PV + m];
+    sw[swz(lane * C_VEC + k)] = q;
+  }
+  __syncwarp();
+  if (whole) {
+    uint4* dst = reinterpret_cast<uint4*>(out + wbase);
+#pragma unroll
+    for (int k = 0; k < C_VEC; ++k) dst[k * 32 + lane] = sw[swz(k * 32 + lane)];
+  } else {
+    for (int e = lane; e < WARP_ITEMS; e += 32) {
+      const long long i = wbase + e;
+      if (i < n) out[i] = se[swz(e / PV) * PV + e % PV];
+    }
+  }
+
+  // The last block to finish clears the status (every other block is past
+  // its look-back), so the next call on the stream finds it zeroed.
+  __shared__ bool s_last;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    s_last = atomicAdd(ticket + 1, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (s_last) {
+    const long long words = (long long)gridDim.x * Carry<V>::WORDS;
+    for (long long i = threadIdx.x; i < words; i += blockDim.x) st[i] = 0ull;
+    if (threadIdx.x == 0) {
+      ticket[0] = 0u;
+      ticket[1] = 0u;
+    }
+  }
+}
+
+template <class V>
+static int launch_carry(const void* x, void* out, long long n, int exclusive,
+                        void* status, void* stream) {
+  long long tiles = carry_tiles_of(n, (int)sizeof(V));
+  if (tiles == 0) return 0;
+  // the shared-memory attribute, set once per device
+  static std::mutex mu;
+  static bool set_on[64] = {};
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (dev >= 64 || !set_on[dev]) {
+      err = (int)cudaFuncSetAttribute(
+          carry_tiles<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          C_TILE_BYTES);
+      if (err) return err;
+      if (dev < 64) set_on[dev] = true;
+    }
+  }
+  int aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  char* p = static_cast<char*>(status);
+  carry_tiles<V><<<(unsigned)tiles, C_THREADS, C_TILE_BYTES,
+                   (cudaStream_t)stream>>>(
+      static_cast<const V*>(x), static_cast<V*>(out), n, exclusive, aligned,
+      reinterpret_cast<unsigned*>(p),
+      reinterpret_cast<unsigned long long*>(p + 16));
+  return (int)cudaGetLastError();
+}
+
 // --- the base-fed block scan (3-phase scan, phase 3) ------------------------------
 //
 // Replaces cl_ops_tpu/ops/scan/kernels.py _scan_block_kernel (32-bit integer
@@ -419,9 +728,22 @@ static int launch(const void* x, const void* flags, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
-// Bytes of the zeroed status buffer a scan of n elements of value_bytes needs.
+// Bytes of the zeroed status buffer a segmented scan of n elements of
+// value_bytes needs.
 extern "C" long long clo_scan_status_bytes(long long n, int value_bytes) {
   return status_bytes(n, value_bytes);
+}
+
+// Bytes of the status buffer scan_carry of n elements of value_bytes needs
+// (zeroed before its first use; each call leaves it zeroed), and its
+// elements per tile.
+extern "C" long long clo_scan_carry_status_bytes(long long n,
+                                                 int value_bytes) {
+  return carry_status_bytes(n, value_bytes);
+}
+
+extern "C" int clo_scan_carry_tile(int value_bytes) {
+  return C_TILE_BYTES / value_bytes;
 }
 
 // scan_carry: inclusive (exclusive != 0: exclusive) prefix sum of n integers
@@ -430,15 +752,15 @@ extern "C" int clo_scan_carry(const void* x, void* out, long long n,
                               int value_bytes, int exclusive, void* status,
                               void* stream) {
   if (value_bytes == 4)
-    return launch<unsigned, OpAdd, false>(x, nullptr, out, n, exclusive,
-                                          status, stream);
+    return launch_carry<unsigned>(x, out, n, exclusive, status, stream);
   if (value_bytes == 8)
-    return launch<unsigned long long, OpAdd, false>(x, nullptr, out, n,
-                                                    exclusive, status, stream);
+    return launch_carry<unsigned long long>(x, out, n, exclusive, status,
+                                            stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// Elements per tile of every scan kernel (one base per tile for scan_block).
+// Elements per tile of seg_scan_carry and scan_block (one base per tile for
+// scan_block).
 extern "C" int clo_scan_tile() { return TILE; }
 
 // scan_block: per-tile inclusive (exclusive != 0: exclusive) scan of n

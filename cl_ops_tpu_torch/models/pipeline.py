@@ -6,6 +6,11 @@ analytics_query (generate -> filter -> GROUP BY), star_query (generate ->
 filter -> join -> GROUP BY), q1_query (the TPC-H Q1 shape) and
 rollup_query (a semi join whose sorted output feeds GROUP BY without a
 sort of its own).
+
+The arguments the JAX package does not have (`device`, and rollup_query's
+`defer`, which JAX takes after `use_pallas`) are keyword-only, so a call
+that passes JAX's `use_pallas` by position raises TypeError instead of
+changing meaning.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ def _mod_u32(bits: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def generate_table(n: int, seed: int = 0, key_space: int = 1 << 20,
-                   value_space: int = 1 << 10, device=None):
+                   value_space: int = 1 << 10, *, device=None):
     """Threefry-generated (keys, values) uint32 fact table on `device`
     (None = "cuda")."""
     ids = torch.arange(n, dtype=torch.int32,
@@ -38,7 +43,7 @@ def generate_table(n: int, seed: int = 0, key_space: int = 1 << 20,
     return keys, values
 
 
-def sort_pipeline(n: int, seed: int = 0, device=None):
+def sort_pipeline(n: int, seed: int = 0, *, device=None):
     """Generate n random keys, sort them with abitonic, return
     (sorted keys, is_sorted) with is_sorted a 0-d bool tensor."""
     from cl_ops_tpu_torch.ops.sort import sort_new
@@ -56,7 +61,7 @@ def _key_bits(num_groups: int) -> int | None:
 
 
 def analytics_query(n: int, num_groups: int = 1024, seed: int = 0,
-                    threshold: int = 512, device=None):
+                    threshold: int = 512, *, device=None):
     """SELECT key % G, SUM(value) FROM t WHERE value < threshold GROUP BY 1.
 
     Generate a table on `device` (None = "cuda") -> filter_compact ->
@@ -86,7 +91,7 @@ def _by_group_id(gk, tbl, gcnt, num_groups: int) -> torch.Tensor:
 
 
 def star_query(n: int, dim_rows: int = 1 << 14, num_cats: int = 256,
-               seed: int = 0, threshold: int = 512, device=None):
+               seed: int = 0, threshold: int = 512, *, device=None):
     """SELECT d.cat, SUM(f.value) FROM fact f JOIN dim d ON f.key = d.key
     WHERE f.value < threshold GROUP BY d.cat: the star-schema shape.
 
@@ -113,7 +118,7 @@ def star_query(n: int, dim_rows: int = 1 << 14, num_cats: int = 256,
 
 
 def q1_query(n: int, num_groups: int = 64, seed: int = 0,
-             threshold: int = 768, device=None):
+             threshold: int = 768, *, device=None):
     """SELECT key, SUM(qty), SUM(price), MIN(qty), MAX(price), COUNT(*),
     AVG(price) FROM t WHERE qty < threshold GROUP BY key: the TPC-H Q1
     shape, one group_aggregate_cols call in its fused-WHERE form (the mask
@@ -141,7 +146,7 @@ def q1_query(n: int, num_groups: int = 64, seed: int = 0,
 
 
 def rollup_query(n: int, dim_rows: int = 1 << 20, seed: int = 0,
-                 defer: bool = False, device=None):
+                 *, defer: bool = False, device=None):
     """SELECT f.key, SUM(f.measure) FROM fact f SEMI JOIN dim d ON f.key =
     d.key GROUP BY f.key: the big-dimension rollup.
 

@@ -7,7 +7,9 @@ kernels in `csrc/scan.cu`:
     look-back, in two forms: 32-bit sums mod 2^32 ("scan_carry", replacing
     `_scan_carry_kernel`) and 64-bit sums mod 2^64 ("scan_carry_wide",
     replacing `_wide_scan_carry_kernel`, on native 64-bit integers instead
-    of two limbs). One read and one write per element.
+    of two limbs). One read and one write per element, in 64 KB tiles
+    (CARRY_TILE elements) of 16-byte loads, with a status word per tile
+    that packs flag and value.
   * 3-phase (`single_pass=False`, and every float32 sum, as in JAX): the
     per-tile sums and their exclusive scan are glue in plain torch
     (phases 1-2), then scan_block scans every TILE-element tile and adds
@@ -30,6 +32,7 @@ launch.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -39,12 +42,16 @@ from cl_ops_tpu_torch.core.errors import BadArgsError, BadDtypeError
 from cl_ops_tpu_torch.interop import signed_view
 from cl_ops_tpu_torch.utils import intmath
 from cl_ops_tpu_torch.utils.bits import cdiv
-from cl_ops_tpu_torch.utils.platform import build_library
+from cl_ops_tpu_torch.utils.platform import build_library, launch_stream
 
 KERNELS = ("scan_carry", "scan_carry_wide", "scan_block", "scan_block_wide")
-TILE = 4096    # elements per tile: csrc/scan.cu TILE
-THREADS = 512  # csrc/scan.cu THREADS
+TILE = 4096    # elements per tile of scan_block and seg_scan_carry: TILE
+THREADS = 512  # csrc/scan.cu THREADS (and C_THREADS)
 WARPS = THREADS // 32
+# scan_carry's elements per 64 KB tile by value bytes: csrc/scan.cu
+# C_TILE_BYTES / value_bytes; its dynamic shared memory is one tile
+CARRY_TILE_BYTES = 64 * 1024
+CARRY_TILE = {4: CARRY_TILE_BYTES // 4, 8: CARRY_TILE_BYTES // 8}
 
 # Kernel launches per wrapper since the last reset_launches().
 launches = dict.fromkeys(KERNELS, 0)
@@ -68,8 +75,11 @@ def load_kernels():
         path, build_log = build_library("scan")
         lib = ctypes.CDLL(str(path))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.clo_scan_status_bytes.argtypes = [ll, i]
-        lib.clo_scan_status_bytes.restype = ll
+        for name in ("clo_scan_status_bytes", "clo_scan_carry_status_bytes"):
+            getattr(lib, name).argtypes = [ll, i]
+            getattr(lib, name).restype = ll
+        lib.clo_scan_carry_tile.argtypes = [i]
+        lib.clo_scan_carry_tile.restype = i
         # (x, out, n, value_bytes, exclusive, status, stream)
         lib.clo_scan_carry.argtypes = [p, p, ll, i, i, p, p]
         lib.clo_scan_carry.restype = i
@@ -80,8 +90,13 @@ def load_kernels():
         lib.clo_scan_block.argtypes = [p, p, p, ll, i, i, p]
         lib.clo_scan_block.restype = i
         lib.clo_scan_tile.restype = i
-        if lib.clo_scan_tile() != TILE:
-            raise RuntimeError("csrc/scan.cu TILE differs from kernels.TILE")
+        if lib.clo_scan_tile() != TILE or any(
+                lib.clo_scan_carry_tile(b) != t
+                or lib.clo_scan_carry_status_bytes(1 << 20, b)
+                != carry_status_bytes(1 << 20, b)
+                for b, t in CARRY_TILE.items()):
+            raise RuntimeError("csrc/scan.cu tile sizes differ from "
+                               "kernels.TILE / CARRY_TILE")
         _lib = lib
     return _lib
 
@@ -104,6 +119,29 @@ def run_scan_kernel(fn_name: str, x: torch.Tensor, *args) -> None:
     _stream_call(fn_name, x.device, *args, status.data_ptr())
 
 
+# scan_carry's look-back status, one buffer per (device, stream): the
+# kernel's last block clears what the call used, so the next call on the
+# same stream finds it zeroed; a new or larger buffer starts zeroed.
+_carry_status: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def carry_status_bytes(n: int, value_bytes: int) -> int:
+    """csrc/scan.cu carry_status_bytes: a 16-byte ticket and tile count,
+    then 2 * value_bytes per tile."""
+    return 16 + 2 * value_bytes * cdiv(n, CARRY_TILE[value_bytes])
+
+
+def _carry_status_for(x: torch.Tensor, stream: int) -> torch.Tensor:
+    need = carry_status_bytes(x.numel(), x.element_size())
+    key = (x.device.index, stream)
+    buf = _carry_status.get(key)
+    if buf is None or buf.numel() < need:
+        size = max(need, 2 * buf.numel()) if buf is not None else need
+        buf = torch.zeros(size, dtype=torch.uint8, device=x.device)
+        _carry_status[key] = buf
+    return buf
+
+
 def check_1d(x: torch.Tensor, dtypes) -> bool:
     """Validate a kernel operand; returns whether it lies on the card."""
     if x.dim() != 1 or not x.is_contiguous() or x.dtype not in dtypes:
@@ -115,10 +153,11 @@ def check_1d(x: torch.Tensor, dtypes) -> bool:
 
 
 def smem_bytes(kernel: str, value_bytes: int) -> int:
-    """Static shared memory per block of a scan kernel (csrc/scan.cu), for
-    values of value_bytes."""
+    """Shared memory per block of a scan kernel (csrc/scan.cu), for values
+    of value_bytes: static, plus scan_carry's dynamic tile."""
     if kernel in ("scan_carry", "scan_carry_wide"):
-        return 4 + WARPS * (value_bytes + 4)  # tile ticket, warp pairs
+        # tile ticket, warp totals, and the tile itself (dynamic)
+        return 4 + WARPS * value_bytes + CARRY_TILE_BYTES
     if kernel in ("scan_block", "scan_block_wide"):
         return WARPS * value_bytes            # warp totals
     raise BadArgsError(f"unknown scan kernel {kernel!r}")
@@ -139,8 +178,19 @@ def scan_carry(x: torch.Tensor, exclusive: bool = False) -> torch.Tensor:
         return scan_carry_plain(x, exclusive)
     out = torch.empty_like(x)
     if x.numel():
-        run_scan_kernel("clo_scan_carry", x, x.data_ptr(), out.data_ptr(),
-                        x.numel(), x.element_size(), int(exclusive))
+        lib = _lib or load_kernels()
+        dev = x.device
+        here = dev.index == torch.cuda.current_device()
+        # the library launches on the current device
+        with contextlib.nullcontext() if here else torch.cuda.device(dev):
+            stream = launch_stream(dev)
+            err = lib.clo_scan_carry(
+                x.data_ptr(), out.data_ptr(), x.numel(), x.element_size(),
+                int(exclusive), _carry_status_for(x, stream).data_ptr(),
+                stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA kernel clo_scan_carry failed: error "
+                               f"{err}")
         launches["scan_carry" if x.dtype == torch.int32
                  else "scan_carry_wide"] += 1
     return out

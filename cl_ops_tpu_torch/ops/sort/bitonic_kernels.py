@@ -28,13 +28,15 @@ kernel on CUDA tensors, adding one to `launches[<name>]` per launch.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
 from cl_ops_tpu_torch.core.errors import BadArgsError
 from cl_ops_tpu_torch.utils.bits import is_po2, log2_floor, nlpo2
-from cl_ops_tpu_torch.utils.platform import build_library
+from cl_ops_tpu_torch.utils.platform import build_library, launch_stream
 
 MAX_COLS = 8           # csrc/bitonic.cu MAX_COLS
 MAX_LEN = 1 << 30      # indices and stage bits stay inside 32-bit ints
@@ -42,6 +44,8 @@ SMEM_MAX = 227 * 1024  # dynamic shared memory one Hopper block can use
 # n x columns of the single-launch sort: the JAX package's limit (16384 rows
 # of 128 per array), 8 MB of int32
 WHOLE_MAX = 1 << 21
+WHOLE_BLOCKS = 128    # slices of a whole_sort: a power of two <= 132 SMs
+WHOLE_THREADS = 512   # threads of a whole_sort block at most: two fit an SM
 FUSED = ("block_sort", "multi_stage", "pair_cross", "block_merge")
 KERNELS = FUSED + ("whole_sort",)
 
@@ -69,10 +73,16 @@ def load_kernels():
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         for name in KERNELS:
             # (columns, n_cols, num_keys, n, 1 or 2 geometry ints, stream)
-            n_ints = 4 if name in ("block_sort", "whole_sort") else 5
+            n_ints = 4 if name == "block_sort" else 5
             fn = getattr(lib, f"clo_{name}")
             fn.argtypes = [ptrs] + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.clo_whole_rows.argtypes = [ctypes.c_int]
+        lib.clo_whole_rows.restype = ctypes.c_int
+        if any(lib.clo_whole_rows(c) != whole_rows(c)
+               for c in range(1, MAX_COLS + 1)):
+            raise RuntimeError("csrc/bitonic.cu whole_rows differs from "
+                               "bitonic_kernels.whole_rows")
         _lib = lib
     return _lib
 
@@ -86,9 +96,11 @@ def _launch(name: str, cols, num_keys: int, *ints) -> None:
     fn = getattr(load_kernels(), f"clo_{name}")
     ptrs = (ctypes.c_void_p * len(cols))(*[c.data_ptr() for c in cols])
     dev = cols[0].device
-    with torch.cuda.device(dev):  # the library launches on the current device
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptrs, len(cols), num_keys, cols[0].numel(), *ints, stream)
+    here = dev.index == torch.cuda.current_device()
+    # the library launches on the current device
+    with contextlib.nullcontext() if here else torch.cuda.device(dev):
+        err = fn(ptrs, len(cols), num_keys, cols[0].numel(), *ints,
+                 launch_stream(dev))
     if err == _COOPERATIVE_TOO_LARGE:
         raise BadArgsError(f"{name}: {cols[0].numel()} rows need more "
                            "co-resident blocks than the card holds")
@@ -239,13 +251,37 @@ def block_merge_(cols, merge: int, k: int, num_keys: int | None = None):
     return cols
 
 
+def whole_rows(n_cols: int) -> int:
+    """Rows each whole_sort thread holds in registers at n_cols columns
+    (csrc/bitonic.cu whole_rows): 16 int32 registers or fewer per thread."""
+    return {1: 16, 2: 8, 3: 4, 4: 4}.get(n_cols, 2)
+
+
 def whole_slice(n: int, n_cols: int) -> int:
-    """Rows of each whole_sort block: the largest power of two <= n whose
-    columns fit one block's shared memory."""
-    s = 1
-    while 2 * s <= n and n_cols * 2 * s * 4 <= SMEM_MAX:
+    """Rows of each whole_sort block: n / WHOLE_BLOCKS, so that the slices
+    spread over the card's SMs, but at least a warp's worth (32 x
+    whole_rows) where n has them and at least sqrt(n) (a stage's gathered
+    groups must fit one slice); then halved while the slice needs more
+    than WHOLE_THREADS threads (so the largest arrays take 256 blocks, two
+    per SM) or its padded columns more than one block's shared memory."""
+    r = whole_rows(n_cols)
+    s = max(n // WHOLE_BLOCKS, min(n, 32 * r), 1)
+    while s * s < n:
         s *= 2
+    while s > 1 and (s > WHOLE_THREADS * r
+                     or n_cols * (s + s // 32) * 4 > SMEM_MAX):
+        s //= 2
     return s
+
+
+@functools.cache
+def whole_geometry(n: int, n_cols: int) -> tuple[int, int]:
+    """(slice, rows per thread) of a whole_sort launch over n rows: the
+    rows are whole_rows(n_cols), or 1 in a slice under 32 x whole_rows
+    rows (less than a warp of threads)."""
+    s = whole_slice(n, n_cols)
+    r = whole_rows(n_cols)
+    return s, (r if s >= 32 * r else 1)
 
 
 def whole_sort_(cols, num_keys: int | None = None):
@@ -261,7 +297,7 @@ def whole_sort_(cols, num_keys: int | None = None):
     if n <= 1:
         return cols
     if cuda:
-        _launch("whole_sort", cols, nk, whole_slice(n, len(cols)))
+        _launch("whole_sort", cols, nk, *whole_geometry(n, len(cols)))
     else:
         whole_sort_plain(cols, nk)
     return cols

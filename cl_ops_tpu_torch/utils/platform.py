@@ -39,6 +39,18 @@ def default_device(device=None) -> torch.device:
     return dev
 
 
+def launch_stream(device: torch.device) -> int:
+    """The handle of `device`'s current CUDA stream, for a library that
+    launches on the current device: the caller makes `device` current
+    first (`torch.cuda.device`) when it is not. Read through the raw
+    accessor that torch.cuda.current_stream wraps, without building a
+    Stream object: a few microseconds less per launch."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def build_dir() -> Path:
     """Where built kernels go: $CL_OPS_TORCH_BUILD_DIR, else `_build/` in the
     package."""

@@ -159,3 +159,65 @@ def test_platform_device_and_build_dir(monkeypatch, tmp_path):
         with pytest.raises(CloOpsError) as e:
             platform.default_device(None)
         assert e.value.code == ErrorCode.DEVICE_NOT_FOUND
+
+
+def test_package_exports_deferred_witnesses():
+    """The top-level package re-exports the deferred-form witnesses, as the
+    JAX package does."""
+    import cl_ops_tpu as jpkg
+
+    import cl_ops_tpu_torch as tpkg
+    from cl_ops_tpu_torch import DeferredOverflowError, verify_deferred
+    from cl_ops_tpu_torch import defer
+    assert DeferredOverflowError is defer.DeferredOverflowError
+    assert verify_deferred is defer.verify_deferred
+    for name in ("DeferredOverflowError", "verify_deferred"):
+        assert name in jpkg.__all__ and name in tpkg.__all__
+    assert issubclass(DeferredOverflowError, CloOpsError)
+
+
+def _witness_cases():
+    """(witnesses, op_name) of tests/test_core.py's TestVerifyDeferred, as
+    numpy values both packages take."""
+    dropped = np.zeros(8, np.int32)
+    dropped[3] = 17
+    return [
+        ((np.zeros(4, np.int32),), "deferred op"),
+        ((np.zeros((), np.bool_),), "rollup"),
+        (((np.zeros(8, np.int32), np.zeros(8, np.int32)),), "deferred op"),
+        (((np.zeros(8, np.int32), dropped),), "dist_hash_join"),
+        ((np.asarray(True),), "rollup_query"),
+        ((np.ones(2, np.int32),), "deferred op"),
+        ((), "deferred op"),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_witness_cases())))
+def test_verify_deferred_matches_reference(case):
+    """verify_deferred passes, or raises the same error naming the same
+    witness and count, as the JAX package's (the advice after the dash
+    differs: the port has no distributed join to re-plan); torch tensors
+    of the same witnesses behave as the numpy ones."""
+    import cl_ops_tpu as jpkg
+
+    from cl_ops_tpu_torch import DeferredOverflowError, verify_deferred
+    witnesses, op_name = _witness_cases()[case]
+
+    def outcome(fn, ws):
+        try:
+            fn(*ws, op_name=op_name)
+        except Exception as e:  # noqa: BLE001 - each package's own types
+            return type(e).__name__, str(e).split(" — ")[0]
+        return None
+
+    def as_torch(w):
+        if isinstance(w, tuple):
+            return tuple(as_torch(x) for x in w)
+        return torch.from_numpy(np.array(w))
+
+    want = outcome(jpkg.verify_deferred, witnesses)
+    assert outcome(verify_deferred, witnesses) == want
+    assert outcome(verify_deferred, as_torch(witnesses)) == want
+    if want is not None and want[0] != "ValueError":
+        with pytest.raises(DeferredOverflowError):
+            verify_deferred(*witnesses, op_name=op_name)

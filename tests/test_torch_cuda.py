@@ -153,6 +153,56 @@ def test_scan_carry_matches_plain(cuda, n, dtype, exclusive):
     assert torch.equal(got.cpu(), sk.scan_carry_plain(x, exclusive))
 
 
+def _carry_input(n, dtype, seed, offset=0):
+    """n full-range integers of dtype on the card, starting `offset`
+    elements into their buffer (offset 1: not 16-byte aligned)."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(np.int32 if dtype == torch.int32 else np.int64)
+    x = torch.from_numpy(rng.integers(info.min, info.max, n + offset,
+                                      endpoint=True, dtype=info.dtype))
+    return x[offset:], x.to("cuda")[offset:]
+
+
+CARRY_CASES = {  # (length in tiles, extra elements, offset)
+    "one tile": (1, 0, 0), "tile - 1": (1, -1, 0), "tile + 1": (1, 1, 0),
+    "two tiles, ragged warp": (2, 32 * 33 + 5, 0),
+    "long chain": (None, (1 << 24) + 5, 0), "unaligned": (2, 3, 1)}
+
+
+@pytest.mark.parametrize("case", list(CARRY_CASES))
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("exclusive", [False, True])
+def test_scan_carry_around_its_tile(cuda, case, dtype, exclusive):
+    """The 64 KB-tile scan_carry at one tile, on both sides of it, with a
+    warp that runs past n, over a look-back chain of 1024-2048 tiles, and
+    from a buffer that is not 16-byte aligned (element-wise loads)."""
+    tiles, extra, offset = CARRY_CASES[case]
+    tile = sk.CARRY_TILE[torch.tensor([], dtype=dtype).element_size()]
+    n = (tiles or 0) * tile + extra
+    x, dx = _carry_input(n, dtype, n + offset, offset)
+    sk.reset_launches()
+    got = sk.scan_carry(dx, exclusive)
+    torch.cuda.synchronize()
+    name = "scan_carry" if dtype == torch.int32 else "scan_carry_wide"
+    assert sk.launches[name] == 1
+    assert torch.equal(got.cpu(), sk.scan_carry_plain(x, exclusive))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_scan_carry_back_to_back(cuda, dtype):
+    """Calls queued on one stream without a synchronize between them: each
+    has its own zeroed status, so none sees another's tiles."""
+    xs = [_carry_input(n, dtype, n) for n in ((1 << 22) + 7, 1 << 20)]
+    sk.reset_launches()
+    got = [sk.scan_carry(d, ex) for _, d in xs for ex in (False, True)]
+    torch.cuda.synchronize()
+    name = "scan_carry" if dtype == torch.int32 else "scan_carry_wide"
+    assert sk.launches[name] == 4
+    want = [sk.scan_carry_plain(h, ex) for h, _ in xs for ex in (False, True)]
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
 @pytest.mark.parametrize("n", SCAN_LENGTHS)
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 @pytest.mark.parametrize("op", ["add", "min", "max"])
@@ -487,6 +537,39 @@ def test_whole_sort_matches_fused(cuda, n, n_cols, num_keys, hi):
         assert torch.equal(a, b)
 
 
+def _whole_rows_of(n_cols, where):
+    """Rows of a whole_sort case: one slice, two slices, or the largest
+    array (2 x WHOLE_BLOCKS slices, two per SM)."""
+    one = 32 * bk.whole_rows(n_cols)  # the smallest slice of full warps
+    return {"one slice": one, "two slices": 2 * one,
+            "largest grid": 1 << (bk.WHOLE_MAX // n_cols).bit_length() - 1
+            }[where]
+
+
+@pytest.mark.parametrize("where", ["one slice", "two slices",
+                                   "largest grid"])
+@pytest.mark.parametrize("n_cols,num_keys", [(1, None), (3, 2), (8, 3)])
+def test_whole_sort_geometry_matches_plain(cuda, where, n_cols, num_keys):
+    """The register/shuffle/shared-memory whole_sort at one slice, two and
+    the most of them, at 1, 3 and 8 columns with key prefixes tied
+    in many rows, against whole_sort_plain bit for bit."""
+    n = _whole_rows_of(n_cols, where)
+    s, r = bk.whole_geometry(n, n_cols)
+    assert (n // s, r) == ({"one slice": 1, "two slices": 2}.get(
+        where, 2 * bk.WHOLE_BLOCKS), bk.whole_rows(n_cols))
+    cols = [c.to(cuda) for c in _cols(n, n_cols, n + n_cols, 3)]
+    if n_cols > 1:  # a payload column of row numbers
+        cols[-1] = torch.arange(n, dtype=torch.int32, device=cuda)
+    want = [c.clone() for c in cols]
+    bk.whole_sort_plain(want, n_cols if num_keys is None else num_keys)
+    bk.reset_launches()
+    bk.whole_sort_(cols, num_keys)
+    torch.cuda.synchronize()
+    assert bk.launches["whole_sort"] == 1
+    for a, b in zip(cols, want):
+        assert torch.equal(a, b)
+
+
 def test_whole_sort_past_capacity_raises(cuda):
     from cl_ops_tpu_torch.core.errors import BadArgsError
     bk.reset_launches()
@@ -496,11 +579,11 @@ def test_whole_sort_past_capacity_raises(cuda):
     with pytest.raises(BadArgsError):
         sort_new("abitonic", "single_launch=1").sort_with_host_data(
             np.zeros((1 << 21) + 1, np.uint32))
-    # past the co-resident grid (256 blocks of 32768 rows), refused by the
+    # past the co-resident grid (1024 blocks of 8192 rows), refused by the
     # library before any launch
     big = [torch.zeros(1 << 23, dtype=torch.int32, device=cuda)]
     with pytest.raises(BadArgsError):
-        bk._launch("whole_sort", big, 1, bk.whole_slice(1 << 23, 1))
+        bk._launch("whole_sort", big, 1, *bk.whole_geometry(1 << 23, 1))
     assert bk.launches["whole_sort"] == 0
 
 

@@ -185,3 +185,32 @@ def test_rollup_query_overflow_reruns_through_merge():
     assert k == len(uniq)
     np.testing.assert_array_equal(gk.numpy()[:k], uniq)
     np.testing.assert_array_equal(gt.numpy()[:k], sums)
+
+
+def test_models_export_every_pipeline():
+    """models exports the six pipelines, JAX's five among them."""
+    from cl_ops_tpu import models as jmodels
+
+    from cl_ops_tpu_torch import models
+    assert set(jmodels.__all__) <= set(models.__all__)
+    for name in models.__all__:
+        assert getattr(models, name) is getattr(tpl, name)
+    assert models.star_query is tpl.star_query
+    assert models.rollup_query is tpl.rollup_query
+
+
+@pytest.mark.parametrize("call", [
+    lambda: tpl.rollup_query(64, 16, 0, False),
+    lambda: tpl.rollup_query(64, 16, 0, False, True),
+    lambda: tpl.star_query(64, 16, 4, 0, 512, False),
+    lambda: tpl.analytics_query(64, 16, 0, 512, False),
+    lambda: tpl.q1_query(64, 16, 0, 768, False),
+    lambda: tpl.sort_pipeline(64, 0, False),
+    lambda: tpl.generate_table(64, 0, 16, 16, "cpu"),
+])
+def test_jax_positional_use_pallas_raises(call):
+    """JAX's pipelines take use_pallas by position after their shared
+    arguments; the port's device and defer are keyword-only, so such a
+    call raises before any work instead of changing meaning."""
+    with pytest.raises(TypeError):
+        call()

@@ -142,9 +142,25 @@ def test_whole_sort_plain_equals_fused(n, n_cols, num_keys, hi):
 
 
 def test_whole_sort_capacity():
-    assert tbk.whole_slice(1 << 20, 1) == 1 << 15
-    assert tbk.whole_slice(1 << 19, 3) == 1 << 14
+    # slices of n / 128 rows, so that the grid spreads over the SMs, and
+    # at most 512 threads a block (256 blocks, two per SM, at the most rows)
+    assert tbk.whole_slice(1 << 20, 1) == 1 << 13
+    assert tbk.whole_slice(1 << 19, 3) == 1 << 11
     assert tbk.whole_slice(64, 8) == 64
+    assert tbk.whole_geometry(1 << 20, 1) == (1 << 13, 16)
+    assert tbk.whole_geometry(1 << 21, 1) == (1 << 13, 16)  # two per SM
+    assert tbk.whole_geometry(1 << 18, 8) == (1 << 10, 2)
+    assert tbk.whole_geometry(1 << 10, 1) == (1 << 9, 16)
+    assert tbk.whole_geometry(256, 1) == (256, 1)  # under 32 warps' rows
+    for nc in range(1, tbk.MAX_COLS + 1):
+        n = 2
+        while n * nc <= tbk.WHOLE_MAX:
+            s, r = tbk.whole_geometry(n, nc)
+            assert s <= n and s * s >= n and n // s <= 2 * tbk.WHOLE_BLOCKS
+            assert r in (1, tbk.whole_rows(nc)) and s % r == 0
+            assert 1 <= s // r <= tbk.WHOLE_THREADS
+            assert nc * (s + s // 32) * 4 <= tbk.SMEM_MAX
+            n *= 2
     cols = [torch.zeros(1 << 20, dtype=torch.int32)] * 3
     with pytest.raises(BadArgsError):  # 3 x 2^20 > 2^21
         tbk.whole_sort_(cols)
