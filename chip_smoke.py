@@ -1252,7 +1252,8 @@ def main() -> int:
                 f.result()
         print(f"kernel build+load: {time.perf_counter() - t:.3f} s")
         for line in "".join(m.build_log for m in built).splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "Compiling entry",
+                                       "spill")):
                 print("ptxas:", line.strip())
 
     # -- each kernel against its plain version, at the main-path shapes -------
@@ -1313,7 +1314,10 @@ def main() -> int:
         x = limb32[0]
         u32_recs = kernel_table(limb32, 1, {
             "block_sort": lambda: torch.sort(x.view(-1, b1), dim=1),
-            "multi_stage": lambda: torch.sort(x.view(-1, m1), dim=1)})
+            "multi_stage": lambda: torch.sort(x.view(-1, m1), dim=1),
+            # sorts each M-block: block_merge's output at k = 0 on its
+            # bitonic input
+            "block_merge": lambda: torch.sort(x.view(-1, m1), dim=1)})
         keys64 = interop.to_torch(
             rng.integers(0, 2 ** 64, SORT_N, dtype=np.uint64), dev)
         vals32 = interop.to_torch(

@@ -1,8 +1,9 @@
 // Bitonic compare-exchange kernels of the sorters "abitonic" (the fused
 // schedule, or whole_sort with single_launch=1) and "sbitonic" (pair_cross
-// once per network step), for Hopper (sm_90a). Built with nvcc into a shared library with a plain C
-// interface and loaded with ctypes (cl_ops_tpu_torch/ops/sort/
-// bitonic_kernels.py, which also holds each kernel's plain PyTorch version).
+// once per network step), for Hopper (sm_90a). Built with nvcc into a
+// shared library with a plain C interface and loaded with ctypes
+// (cl_ops_tpu_torch/ops/sort/bitonic_kernels.py, which also holds each
+// kernel's plain PyTorch version).
 //
 // Data: up to MAX_COLS int32 columns of one power-of-two length n. Rows
 // order by signed-i32 lexicographic comparison of the first num_keys
@@ -15,11 +16,11 @@
 //
 // All five kernels work in place. Each launch of the fused schedule's four
 // reads and writes every column once, 2 * n_cols * 4 * n bytes of device
-// memory: the kernels that keep a block in shared memory run many network
-// steps per such sweep, and the one that works in device memory
-// (pair_cross) runs one step per sweep with neighbouring threads on
-// neighbouring addresses. whole_sort runs the whole network in one
-// cooperative launch, with most steps in registers.
+// memory: the kernels that keep a block on chip run many network steps per
+// such sweep (block_sort and block_merge most of them in registers), and
+// the one that works in device memory (pair_cross) runs one step per sweep
+// with neighbouring threads on neighbouring addresses. whole_sort runs the
+// whole network in one cooperative launch, with most steps in registers.
 //
 // Each entry point launches on the stream it is given, allocates nothing and
 // returns cudaGetLastError() (0 on success).
@@ -34,6 +35,7 @@ namespace cg = cooperative_groups;
 
 #define MAX_COLS 8
 #define MAX_THREADS 1024
+#define SMEM_MAX 232448  // dynamic shared memory one Hopper block can use
 
 struct Cols {
   int32_t* p[MAX_COLS];
@@ -97,22 +99,6 @@ __device__ void store_block(const Cols& cols, const int32_t* s, int len,
   }
 }
 
-// block_sort: replaces cl_ops_tpu/ops/sort/bitonic_kernels.py
-// _block_sort_kernel. Full bitonic sort of each block of `block` rows, stages
-// K = 2 .. block; with several blocks the top stage alternates direction by
-// block parity (the global-index rule gives that). Bound on this card: one
-// read and one write of every column; the design keeps the whole block in
-// shared memory so that all log2(B)(log2(B)+1)/2 steps cost one sweep.
-__global__ void block_sort_kernel(Cols cols, int n_cols, int num_keys,
-                                  int block) {
-  extern __shared__ int32_t smem[];
-  unsigned base = blockIdx.x * (unsigned)block;
-  load_block(cols, smem, block, base, n_cols);
-  for (unsigned k = 2; k <= (unsigned)block; k <<= 1)
-    smem_steps(smem, block, base, k, (int)(k >> 1), n_cols, num_keys);
-  store_block(cols, smem, block, base, n_cols);
-}
-
 // multi_stage: replaces bitonic_kernels.py _multi_stage_kernel. Stages
 // K = 2 * block .. merge inside blocks of `merge` rows (sorted runs of
 // `block` rows in alternating directions come in). Unlike the TPU kernel it
@@ -174,20 +160,6 @@ __global__ void pair_cross_kernel(Cols cols, int n_cols, int num_keys,
   unsigned p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= half) return;
   pair_step(cols, n_cols, num_keys, p, k, j);
-}
-
-// block_merge: replaces bitonic_kernels.py _block_merge_kernel. Steps
-// j = merge/2 .. 1 of one stage k inside blocks of `merge` rows; the
-// direction is uniform per block ((block index * merge) & k == 0), and k = 0
-// serves the ascending merge of a whole bitonic sequence. Bound: one sweep
-// of every column; shared memory holds the block for all log2(merge) steps.
-__global__ void block_merge_kernel(Cols cols, int n_cols, int num_keys,
-                                   int merge, unsigned k) {
-  extern __shared__ int32_t smem[];
-  unsigned base = blockIdx.x * (unsigned)merge;
-  load_block(cols, smem, merge, base, n_cols);
-  smem_steps(smem, merge, base, k, merge >> 1, n_cols, num_keys);
-  store_block(cols, smem, merge, base, n_cols);
 }
 
 // whole_sort: replaces bitonic_kernels.py _vmem_sort_kernel, the whole
@@ -259,34 +231,80 @@ __device__ __forceinline__ void cx(int32_t (&a)[NC], int32_t (&b)[NC],
   }
 }
 
-__device__ __forceinline__ unsigned pad32(unsigned i) { return i + (i >> 5); }
+// Shared-memory position of local row i: one pad word after every 2^SH
+// rows (SH = 5: one per 32, so that the blocked register loads are free of
+// bank conflicts; SH = 31: no pad).
+template <int SH = 5>
+__device__ __forceinline__ unsigned pad(unsigned i) { return i + (i >> SH); }
+
+// A block-uniform x, read back through a volatile shared-memory word so
+// that the compiler cannot prove it equal to x: addresses derived from it
+// are computed anew, not kept in registers since an earlier use across a
+// run of network steps (where the registers hold rows). Every thread
+// writes the same value.
+__device__ __forceinline__ unsigned fresh(unsigned x) {
+  __shared__ unsigned box;
+  box = x;
+  return *static_cast<volatile unsigned*>(&box);
+}
 
 // Registers <-> the padded shared-memory slice (thread t: rows t*R .. +R-1).
-template <int NC, int R>
+// R divides 32, so a thread's rows lie in one 32-row line: row t*R + r is
+// at pad(t*R) + r.
+template <int NC, int R, int SH = 5>
 __device__ __forceinline__ void regs_to_smem(const int32_t (&v)[NC][R],
                                              int32_t* s, unsigned P) {
+  static_assert(32 % R == 0, "rows per thread must divide 32");
+  int32_t* q = s + pad<SH>(threadIdx.x * R);
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int r = 0; r < R; ++r) s[c * P + pad32(threadIdx.x * R + r)] = v[c][r];
+    for (int r = 0; r < R; ++r) q[c * P + r] = v[c][r];
 }
 
-template <int NC, int R>
+template <int NC, int R, int SH = 5>
 __device__ __forceinline__ void smem_to_regs(int32_t (&v)[NC][R],
                                              const int32_t* s, unsigned P) {
+  static_assert(32 % R == 0, "rows per thread must divide 32");
+  const int32_t* q = s + pad<SH>(threadIdx.x * R);
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int r = 0; r < R; ++r) v[c][r] = s[c * P + pad32(threadIdx.x * R + r)];
+    for (int r = 0; r < R; ++r) v[c][r] = q[c * P + r];
 }
 
-// One step at register distance D < R, where register r of this thread is
-// the row first + r * stride (stride 1: the blocked layout; 32R: the
-// transposed one).
+// Registers in the transposed layout (thread t: rows t + m * T, T the
+// block's threads) <-> the padded shared-memory slice. Where R > 1, T is a
+// multiple of 32 (the slice holds a warp of R-row threads or more), so row
+// t + m * T is at pad(t) + m * pad(T).
+template <int NC, int R, int SH = 5>
+__device__ __forceinline__ void trans_to_smem(const int32_t (&v)[NC][R],
+                                              int32_t* s, unsigned P) {
+  int32_t* q = s + pad<SH>(threadIdx.x);
+  const unsigned pt = pad<SH>(fresh(blockDim.x));
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int m = 0; m < R; ++m) q[c * P + m * pt] = v[c][m];
+}
+
+template <int NC, int R, int SH = 5>
+__device__ __forceinline__ void smem_to_trans(int32_t (&v)[NC][R],
+                                              const int32_t* s, unsigned P) {
+  const int32_t* q = s + pad<SH>(threadIdx.x);
+  const unsigned pt = pad<SH>(fresh(blockDim.x));
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int m = 0; m < R; ++m) v[c][m] = q[c * P + m * pt];
+}
+
+// One step at register distance D < R. Register r of this thread holds the
+// row whose direction bit (bit k of its index) is set iff fk | (r & kr)
+// (reg_steps).
 template <int D, int NC, int R>
 __device__ __forceinline__ void reg_step(int32_t (&v)[NC][R], int num_keys,
-                                         unsigned base, unsigned k,
-                                         unsigned first, unsigned stride) {
+                                         unsigned fk, unsigned kr) {
   if constexpr (D < R) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -297,7 +315,7 @@ __device__ __forceinline__ void reg_step(int32_t (&v)[NC][R], int num_keys,
         a[c] = v[c][r];
         b[c] = v[c][r + D];
       }
-      cx<NC>(a, b, ((base + first + r * stride) & k) == 0, num_keys);
+      cx<NC>(a, b, (fk | (r & kr)) == 0, num_keys);
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         v[c][r] = a[c];
@@ -308,15 +326,22 @@ __device__ __forceinline__ void reg_step(int32_t (&v)[NC][R], int num_keys,
 }
 
 // The register steps at distances (D = R/2 .. 1) * stride that lie in
-// [d_last, d].
+// [d_last, d], where register r of this thread is the row
+// base + first + r * stride (stride 1: the blocked layout, first a multiple
+// of R; stride T: the transposed one, first < T). The two terms have
+// disjoint bits, and stride divides k (or k = 0), so bit k of the row is
+// that of base + first or bit k / stride of r.
 template <int NC, int R>
 __device__ __forceinline__ void reg_steps(int32_t (&v)[NC][R], int num_keys,
                                           unsigned base, unsigned k,
                                           unsigned first, unsigned stride,
                                           unsigned d, unsigned d_last) {
+  const unsigned fk = (base + first) & k;
+  const unsigned kr = k >> (__ffs(stride) - 1);
 #define CLO_REG_STEP(D)                                              \
   if ((D) * stride <= d && (D) * stride >= d_last)                   \
-    reg_step<D>(v, num_keys, base, k, first, stride);
+    reg_step<D>(v, num_keys, fk, kr);
+  CLO_REG_STEP(16)
   CLO_REG_STEP(8)
   CLO_REG_STEP(4)
   CLO_REG_STEP(2)
@@ -356,6 +381,18 @@ __device__ __forceinline__ void shfl_step(int32_t (&v)[NC][R], int num_keys,
   }
 }
 
+// Steps at distances d .. d_last (halving), all under 32R, of stage k on the
+// rows in registers (blocked layout): by shuffles, then inside each thread.
+template <int NC, int R>
+__device__ __forceinline__ void warp_steps(int32_t (&v)[NC][R], int num_keys,
+                                           unsigned base, unsigned k,
+                                           unsigned d, unsigned d_last,
+                                           unsigned mask) {
+  for (; d >= (unsigned)R && d >= d_last; d >>= 1)
+    shfl_step<NC, R>(v, num_keys, base, k, d, mask);
+  reg_steps<NC, R>(v, num_keys, base, k, threadIdx.x * R, 1, d, d_last);
+}
+
 // Steps at local distances d = d_first .. d_last (halving) of stage k over
 // the block's `S` rows; the local row i has global direction index
 // base + i. The rows come in registers (blocked layout), or in shared
@@ -363,10 +400,10 @@ __device__ __forceinline__ void shfl_step(int32_t (&v)[NC][R], int num_keys,
 // when to_smem (the caller synchronises before reading other threads'
 // rows), else in registers. Steps at d >= 32R run in shared memory: those
 // at d >= T (the block's threads) in registers, each thread loading the R
-// rows t + m * T, between two __syncthreads; any at 32R <= d < T one pair
-// step per __syncthreads. The smaller distances run by shuffles, then
-// inside each thread.
-template <int NC, int R>
+// rows t + m * T, between two __syncthreads; any at 32R <= d < T one
+// step per __syncthreads, or with QUADS two (while two are left). The
+// smaller distances run by shuffles, then inside each thread.
+template <int NC, int R, int SH = 5, bool QUADS = false>
 __device__ void local_steps(int32_t (&v)[NC][R], int32_t* s, unsigned P,
                             unsigned S, int num_keys, unsigned base,
                             unsigned k, unsigned d_first, unsigned d_last,
@@ -377,22 +414,39 @@ __device__ void local_steps(int32_t (&v)[NC][R], int32_t* s, unsigned P,
   if (d >= 32u * R && d >= d_last) {
     if (!in_smem) {
       __syncthreads();
-      regs_to_smem<NC, R>(v, s, P);
+      regs_to_smem<NC, R, SH>(v, s, P);
       __syncthreads();
     }
     const unsigned T = blockDim.x;
     if (d >= T && d >= d_last) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int m = 0; m < R; ++m) v[c][m] = s[c * P + pad32(t + m * T)];
+      smem_to_trans<NC, R, SH>(v, s, P);
       reg_steps<NC, R>(v, num_keys, base, k, t, T, d, d_last);
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int m = 0; m < R; ++m) s[c * P + pad32(t + m * T)] = v[c][m];
+      trans_to_smem<NC, R, SH>(v, s, P);
       __syncthreads();
       d = T / 2;
+    }
+    // two steps (d, d/2) per pass: each thread takes quads of rows
+    // lo + j * d/2, j < 4, all in one direction (k >= 2d)
+    for (; QUADS && d >= 64u * R && d / 2 >= d_last; d >>= 2) {
+      const unsigned h = d >> 1;
+      for (unsigned q = t; q < S / 4; q += T) {
+        const unsigned lo = ((q & ~(h - 1)) << 2) | (q & (h - 1));
+        const bool asc = ((base + lo) & k) == 0;
+        int32_t x[4][NC];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) x[j][c] = s[c * P + pad<SH>(lo + j * h)];
+        cx<NC>(x[0], x[2], asc, num_keys);
+        cx<NC>(x[1], x[3], asc, num_keys);
+        cx<NC>(x[0], x[1], asc, num_keys);
+        cx<NC>(x[2], x[3], asc, num_keys);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) s[c * P + pad<SH>(lo + j * h)] = x[j][c];
+      }
+      __syncthreads();
     }
     for (; d >= 32u * R && d >= d_last; d >>= 1) {
       for (unsigned p = t; p < S / 2; p += T) {
@@ -401,14 +455,14 @@ __device__ void local_steps(int32_t (&v)[NC][R], int32_t* s, unsigned P,
         int32_t a[NC], b[NC];
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          a[c] = s[c * P + pad32(lo)];
-          b[c] = s[c * P + pad32(hi)];
+          a[c] = s[c * P + pad<SH>(lo)];
+          b[c] = s[c * P + pad<SH>(hi)];
         }
         cx<NC>(a, b, ((base + lo) & k) == 0, num_keys);
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          s[c * P + pad32(lo)] = a[c];
-          s[c * P + pad32(hi)] = b[c];
+          s[c * P + pad<SH>(lo)] = a[c];
+          s[c * P + pad<SH>(hi)] = b[c];
         }
       }
       __syncthreads();
@@ -416,15 +470,13 @@ __device__ void local_steps(int32_t (&v)[NC][R], int32_t* s, unsigned P,
     in_smem = true;
   }
   if (d >= d_last) {  // steps below 32R remain: in registers
-    if (in_smem) smem_to_regs<NC, R>(v, s, P);
+    if (in_smem) smem_to_regs<NC, R, SH>(v, s, P);
     in_smem = false;
-    for (; d >= (unsigned)R && d >= d_last; d >>= 1)
-      shfl_step<NC, R>(v, num_keys, base, k, d, mask);
-    reg_steps<NC, R>(v, num_keys, base, k, t * R, 1, d, d_last);
+    warp_steps<NC, R>(v, num_keys, base, k, d, d_last, mask);
   }
   // each thread moves only its own rows here
-  if (to_smem && !in_smem) regs_to_smem<NC, R>(v, s, P);
-  if (!to_smem && in_smem) smem_to_regs<NC, R>(v, s, P);
+  if (to_smem && !in_smem) regs_to_smem<NC, R, SH>(v, s, P);
+  if (!to_smem && in_smem) smem_to_regs<NC, R, SH>(v, s, P);
 }
 
 // Global rows <-> the padded slice: local row g is global row
@@ -445,7 +497,7 @@ __device__ __forceinline__ void move_rows(const Cols& cols, int vec,
       for (unsigned g = 4 * threadIdx.x; g < S; g += 4 * blockDim.x) {
         int4* q = reinterpret_cast<int4*>(g_col + (g >> lg) * stride +
                                           (g & (run - 1)));
-        const unsigned w = pad32(g);  // 4 rows of one 32-row line
+        const unsigned w = pad(g);  // 4 rows of one 32-row line
         if (STORE) {
           *q = make_int4(s_col[w], s_col[w + 1], s_col[w + 2], s_col[w + 3]);
         } else {
@@ -460,9 +512,9 @@ __device__ __forceinline__ void move_rows(const Cols& cols, int vec,
       for (unsigned g = threadIdx.x; g < S; g += blockDim.x) {
         int32_t* q = g_col + (g >> lg) * stride + (g & (run - 1));
         if (STORE)
-          *q = s_col[pad32(g)];
+          *q = s_col[pad(g)];
         else
-          s_col[pad32(g)] = *q;
+          s_col[pad(g)] = *q;
       }
     }
   }
@@ -527,6 +579,157 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   scatter<NC>(cols, vec, smem, P, S, base, S, S);
 }
 
+// block_sort and block_merge: replace bitonic_kernels.py _block_sort_kernel
+// and _block_merge_kernel. Each block holds one tile of S rows (the sort
+// block B, or the merge block M) and runs on it
+//   block_sort   every stage K = 2 .. S, steps K/2 .. 1 (with several
+//                tiles the top stage alternates by tile parity: a pair's
+//                direction comes from its global index, base + i);
+//   block_merge  the steps S/2 .. 1 of one stage k (k = 0: all ascending),
+// each step placed as in whole_sort (local_steps). Bound: one read and one
+// write of every column. Each of the T = S / R threads holds R rows of
+// every column (block_rows: 32 at 1-3 columns, 16 at 4, 8 at more, 1 in
+// tiles under 32 of those R-row threads). A step runs in registers
+// (d < R), by __shfl_xor_sync (R <= d < 32R) or, at d >= T, in registers
+// after a transpose through shared memory. At 1-4 columns T <= 32 R at
+// every tile that fits the shared-memory budget, so no step costs a
+// shared-memory pass of its own. At 5-8 columns 16 rows a thread spilled
+// registers (80-128 data registers of the 128-255 a thread may have), so
+// threads hold 8 and the steps at 32R <= d < T run two per pass over
+// shared memory, as do R = 1 tiles (at most 512 rows). The tile moves
+// between device memory and registers in the transposed layout (thread t:
+// rows t + m T), so each warp access is one 128-byte line of a column, a
+// thread has all its loads in flight at once, and no column needs more than
+// 4-byte alignment. block_merge runs its steps at d >= T on the rows as
+// they arrive, before the first transpose. At 7 columns and 8192 rows the
+// tile (56 data registers of 64) still spills.
+
+// One pad word per 32 rows, but none at 7 columns: their padded
+// 8192-row tile would not fit the 227 KB a block may use.
+__host__ __device__ constexpr int block_pad_shift(int nc) {
+  return nc == 7 ? 31 : 5;
+}
+
+// Rows per thread of the block kernels' tiles of a warp's worth or more.
+__host__ __device__ constexpr int block_rows_full(int nc) {
+  return nc <= 3 ? 32 : nc == 4 ? 16 : 8;
+}
+
+// The largest tile (a power of two) whose nc columns fit SMEM_MAX unpadded,
+// the bound that the callers check.
+__host__ __device__ constexpr unsigned block_max_len(int nc) {
+  unsigned s = 1;
+  while (2ull * s * nc * sizeof(int32_t) <= SMEM_MAX) s *= 2;
+  return s;
+}
+
+__host__ __device__ constexpr size_t block_smem(int nc, unsigned len) {
+  return (size_t)nc * (len + (len >> block_pad_shift(nc))) * sizeof(int32_t);
+}
+
+template <int NC, int R>
+struct BlockTile {
+  // threads of the largest tile this instance runs
+  static constexpr int kMaxThreads =
+      R == 1 ? 32 * block_rows_full(NC) / 2 : block_max_len(NC) / R;
+};
+
+// Every admitted tile fits padded, in at most 1024 threads (and at 1-4
+// columns with T <= 32 R: no step in shared-memory passes).
+constexpr bool block_tiles_fit() {
+  for (int nc = 1; nc <= MAX_COLS; ++nc) {
+    const unsigned len = block_max_len(nc), r = block_rows_full(nc);
+    if (block_smem(nc, len) > SMEM_MAX || len / r > MAX_THREADS ||
+        (nc <= 4 && len / r > 32 * r))
+      return false;
+  }
+  return true;
+}
+static_assert(block_tiles_fit(), "a block_sort/block_merge tile overflows");
+
+// The tile's rows at global row `base` <-> registers in the transposed
+// layout.
+template <int NC, int R>
+__device__ __forceinline__ void load_tile(const Cols& cols,
+                                          int32_t (&v)[NC][R],
+                                          unsigned base) {
+  const unsigned T = fresh(blockDim.x);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int32_t* g = cols.p[c] + base + threadIdx.x;
+#pragma unroll
+    for (int m = 0; m < R; ++m) v[c][m] = g[m * T];
+  }
+}
+
+template <int NC, int R>
+__device__ __forceinline__ void store_tile(const Cols& cols,
+                                           const int32_t (&v)[NC][R],
+                                           unsigned base) {
+  const unsigned T = fresh(blockDim.x);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    int32_t* g = cols.p[c] + base + threadIdx.x;
+#pragma unroll
+    for (int m = 0; m < R; ++m) g[m * T] = v[c][m];
+  }
+}
+
+template <int NC, int R>
+__global__ void __launch_bounds__(BlockTile<NC, R>::kMaxThreads)
+    block_sort_kernel(Cols cols, int num_keys, unsigned S) {
+  constexpr int SH = block_pad_shift(NC);
+  extern __shared__ int32_t smem[];
+  const unsigned P = S + (S >> SH);
+  const unsigned mask =
+      blockDim.x >= 32 ? 0xFFFFFFFFu : (1u << blockDim.x) - 1;
+  const unsigned base = blockIdx.x * S;
+  int32_t v[NC][R];
+  load_tile<NC, R>(cols, v, base);
+  trans_to_smem<NC, R, SH>(v, smem, P);
+  __syncthreads();
+  // the stages whose steps stay within a warp's rows, on the registers;
+  // then each later stage from and to shared memory
+  const unsigned kw = S < 32u * R ? S : 32u * R;
+  smem_to_regs<NC, R, SH>(v, smem, P);
+  for (unsigned k = 2; k <= kw; k <<= 1)
+    warp_steps<NC, R>(v, num_keys, base, k, k >> 1, 1, mask);
+  regs_to_smem<NC, R, SH>(v, smem, P);
+  for (unsigned k = 2 * kw; k <= S; k <<= 1) {
+    __syncthreads();
+    local_steps<NC, R, SH, true>(v, smem, P, S, num_keys, base, k, k >> 1,
+                                 1, mask, true, true);
+  }
+  __syncthreads();
+  smem_to_trans<NC, R, SH>(v, smem, P);
+  store_tile<NC, R>(cols, v, base);
+}
+
+template <int NC, int R>
+__global__ void __launch_bounds__(BlockTile<NC, R>::kMaxThreads)
+    block_merge_kernel(Cols cols, int num_keys, unsigned S, unsigned k) {
+  constexpr int SH = block_pad_shift(NC);
+  extern __shared__ int32_t smem[];
+  const unsigned P = S + (S >> SH);
+  const unsigned T = blockDim.x;
+  const unsigned mask = T >= 32 ? 0xFFFFFFFFu : (1u << T) - 1;
+  const unsigned base = blockIdx.x * S;
+  int32_t v[NC][R];
+  load_tile<NC, R>(cols, v, base);
+  unsigned d = S >> 1;
+  if (d >= T) {  // register distances D < R are row distances D * T
+    reg_steps<NC, R>(v, num_keys, base, k, threadIdx.x, T, d, T);
+    d = T >> 1;
+  }
+  trans_to_smem<NC, R, SH>(v, smem, P);
+  __syncthreads();
+  local_steps<NC, R, SH, true>(v, smem, P, S, num_keys, base, k, d, 1, mask,
+                               true, true);
+  __syncthreads();
+  smem_to_trans<NC, R, SH>(v, smem, P);
+  store_tile<NC, R>(cols, v, base);
+}
+
 // Rows per thread of whole_sort at nc columns (1 for small slices).
 static constexpr int whole_rows(int nc) {
   return nc == 1 ? 16 : nc == 2 ? 8 : nc <= 4 ? 4 : 2;
@@ -552,17 +755,6 @@ static int set_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-extern "C" int clo_block_sort(void* const* ptrs, int n_cols, int num_keys,
-                              int n, int block, void* stream) {
-  size_t smem = (size_t)n_cols * block * sizeof(int32_t);
-  int err = set_smem(block_sort_kernel, smem);
-  if (err) return err;
-  block_sort_kernel<<<n / block, threads_for(block), smem,
-                      (cudaStream_t)stream>>>(make_cols(ptrs, n_cols), n_cols,
-                                              num_keys, block);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int clo_multi_stage(void* const* ptrs, int n_cols, int num_keys,
                                int n, int block, int merge, void* stream) {
   size_t smem = (size_t)n_cols * merge * sizeof(int32_t);
@@ -585,15 +777,81 @@ extern "C" int clo_pair_cross(void* const* ptrs, int n_cols, int num_keys,
   return (int)cudaGetLastError();
 }
 
+// Rows per thread of the block kernels at nc columns in tiles of len rows.
+static int block_rows(int nc, unsigned len) {
+  return len >= 32u * block_rows_full(nc) ? block_rows_full(nc) : 1;
+}
+
+template <int NC, int R>
+static int launch_block(bool merge, Cols cols, int num_keys, unsigned n,
+                        unsigned len, unsigned k, cudaStream_t stream) {
+  const unsigned threads = len / R;
+  const size_t smem = block_smem(NC, len);
+  if (len < (unsigned)R || len > n ||
+      threads > (unsigned)BlockTile<NC, R>::kMaxThreads || smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  int err;
+  if (merge) {
+    err = set_smem(block_merge_kernel<NC, R>, smem);
+    if (err) return err;
+    block_merge_kernel<NC, R><<<n / len, threads, smem, stream>>>(
+        cols, num_keys, len, k);
+  } else {
+    err = set_smem(block_sort_kernel<NC, R>, smem);
+    if (err) return err;
+    block_sort_kernel<NC, R><<<n / len, threads, smem, stream>>>(
+        cols, num_keys, len);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int NC>
+static int launch_block_rows(bool merge, Cols cols, int num_keys, unsigned n,
+                             unsigned len, unsigned k, cudaStream_t stream) {
+  constexpr int R = block_rows_full(NC);
+  if (block_rows(NC, len) == R)
+    return launch_block<NC, R>(merge, cols, num_keys, n, len, k, stream);
+  return launch_block<NC, 1>(merge, cols, num_keys, n, len, k, stream);
+}
+
+static int launch_block_cols(bool merge, void* const* ptrs, int n_cols,
+                             int num_keys, int n, int len, int k,
+                             void* stream) {
+  Cols c = make_cols(ptrs, n_cols);
+  unsigned un = (unsigned)n, ul = (unsigned)len, uk = (unsigned)k;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (n_cols) {
+    case 1: return launch_block_rows<1>(merge, c, num_keys, un, ul, uk, st);
+    case 2: return launch_block_rows<2>(merge, c, num_keys, un, ul, uk, st);
+    case 3: return launch_block_rows<3>(merge, c, num_keys, un, ul, uk, st);
+    case 4: return launch_block_rows<4>(merge, c, num_keys, un, ul, uk, st);
+    case 5: return launch_block_rows<5>(merge, c, num_keys, un, ul, uk, st);
+    case 6: return launch_block_rows<6>(merge, c, num_keys, un, ul, uk, st);
+    case 7: return launch_block_rows<7>(merge, c, num_keys, un, ul, uk, st);
+    case 8: return launch_block_rows<8>(merge, c, num_keys, un, ul, uk, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int clo_block_sort(void* const* ptrs, int n_cols, int num_keys,
+                              int n, int block, void* stream) {
+  return launch_block_cols(false, ptrs, n_cols, num_keys, n, block, 0,
+                           stream);
+}
+
 extern "C" int clo_block_merge(void* const* ptrs, int n_cols, int num_keys,
                                int n, int merge, int k, void* stream) {
-  size_t smem = (size_t)n_cols * merge * sizeof(int32_t);
-  int err = set_smem(block_merge_kernel, smem);
-  if (err) return err;
-  block_merge_kernel<<<n / merge, threads_for(merge), smem,
-                       (cudaStream_t)stream>>>(make_cols(ptrs, n_cols), n_cols,
-                                               num_keys, merge, (unsigned)k);
-  return (int)cudaGetLastError();
+  return launch_block_cols(true, ptrs, n_cols, num_keys, n, merge, k,
+                           stream);
+}
+
+// The block kernels' geometry, for bitonic_kernels.block_geometry to check.
+extern "C" int clo_block_rows(int n_cols, int len) {
+  return block_rows(n_cols, (unsigned)len);
+}
+
+extern "C" long long clo_block_smem(int n_cols, int len) {
+  return (long long)block_smem(n_cols, (unsigned)len);
 }
 
 // The grid of n / slice blocks must be co-resident, or it would deadlock at

@@ -83,6 +83,17 @@ def load_kernels():
                for c in range(1, MAX_COLS + 1)):
             raise RuntimeError("csrc/bitonic.cu whole_rows differs from "
                                "bitonic_kernels.whole_rows")
+        lib.clo_block_rows.argtypes = [ctypes.c_int] * 2
+        lib.clo_block_rows.restype = ctypes.c_int
+        lib.clo_block_smem.argtypes = [ctypes.c_int] * 2
+        lib.clo_block_smem.restype = ctypes.c_longlong
+        for c, length in block_tiles():
+            _, rows, smem = block_geometry(c, length)
+            if (lib.clo_block_rows(c, length), lib.clo_block_smem(c, length)
+                    ) != (rows, smem):
+                raise RuntimeError("csrc/bitonic.cu block_rows/block_smem "
+                                   "differ from bitonic_kernels."
+                                   "block_geometry")
         _lib = lib
     return _lib
 
@@ -249,6 +260,29 @@ def block_merge_(cols, merge: int, k: int, num_keys: int | None = None):
     else:
         block_merge_plain(cols, merge, k, nk)
     return cols
+
+
+def block_tiles():
+    """Every (columns, tile rows) that _check admits for block_sort_ and
+    block_merge_: power-of-two tiles whose columns fit SMEM_MAX."""
+    for c in range(1, MAX_COLS + 1):
+        length = 1
+        while c * length * 4 <= SMEM_MAX:
+            yield c, length
+            length *= 2
+
+
+def block_geometry(n_cols: int, length: int) -> tuple[int, int, int]:
+    """(threads, rows per thread, shared-memory bytes) of a block_sort or
+    block_merge tile of `length` rows (csrc/bitonic.cu block_rows and
+    block_smem, which load_kernels checks against this): 32 rows a thread
+    at 1-3 columns, 16 at 4, 8 at more, 1 in tiles under 32 such threads;
+    one pad word per 32 rows of a column, none at 7 columns (whose padded
+    8192-row tile would not fit SMEM_MAX)."""
+    full = 32 if n_cols <= 3 else 16 if n_cols == 4 else 8
+    rows = full if length >= 32 * full else 1
+    shift = 31 if n_cols == 7 else 5
+    return length // rows, rows, n_cols * (length + (length >> shift)) * 4
 
 
 def whole_rows(n_cols: int) -> int:

@@ -2,7 +2,9 @@
 
 Small and odd geometries that chip_smoke.py does not reach: up to MAX_COLS
 columns, key prefixes shorter than the row, tied prefixes, single-block
-arrays and the k = 0 merge; scans of odd lengths, all ops and dtypes, with
+arrays and the k = 0 merge; block_sort and block_merge at every column
+count's largest tile, at tiles of 1 to 1024 rows, on columns at an
+unaligned offset and back to back; scans of odd lengths, all ops and dtypes, with
 dense and nearly absent segment flags; the band probe with 1-2 limbs, 1-3
 value columns, empty and ragged build sides and several window starts; the
 block scans at lengths 0, 1 and ragged tails; rank_hist with short tiles,
@@ -97,6 +99,94 @@ def test_each_kernel_matches_plain(cuda):
     ]
     for kern, plain in cases:
         _run_both(cols, kern, plain, cuda)
+
+
+def _default_merge(n_cols):
+    """The largest merge block whose columns fit one block's shared
+    memory (bitonic.pick_merge_elems)."""
+    return max(length for c, length in bk.block_tiles() if c == n_cols)
+
+
+def _block_pair(cols, length, k, num_keys, dev, reps=1):
+    """block_sort_ then block_merge_ (stage k), `reps` times back to back on
+    one stream, against their plain versions; checks both counters."""
+    a = [c.to(dev) for c in cols]
+    b = [c.clone() for c in cols]
+    bk.reset_launches()
+    for _ in range(reps):
+        bk.block_sort_(a, length, num_keys)
+        bk.block_merge_(a, length, k, num_keys)
+        bk.block_sort_plain(b, length, num_keys)
+        bk.block_merge_plain(b, length, k, num_keys)
+    torch.cuda.synchronize()
+    assert bk.launches["block_sort"] == reps
+    assert bk.launches["block_merge"] == reps
+    for x, y in zip(a, b):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("n_cols", range(1, bk.MAX_COLS + 1))
+@pytest.mark.parametrize("keys", ["all", "prefix, tied"])
+def test_block_kernels_at_default_merge_block(cuda, n_cols, keys):
+    """Each column count at its largest tile (7 x 8192 rows included), four
+    tiles, with every column a key or a shorter key prefix in 2-4 values;
+    block_merge at stages k = 0, the tile (directions by tile parity) and
+    beyond it."""
+    m = _default_merge(n_cols)
+    if keys == "all":
+        num_keys, hi = n_cols, 2 ** 31
+    else:
+        num_keys, hi = max(n_cols - 1, 1), 2 + n_cols % 3
+    cols = _cols(4 * m, n_cols, 10 + n_cols, hi)
+    for k in (0, m, 2 * m):
+        _block_pair(cols, m, k, num_keys, cuda)
+
+
+@pytest.mark.parametrize("length", [1, 2, 32, 64, 256, 512, 1024])
+@pytest.mark.parametrize("n_cols,num_keys,hi", [(1, 1, 2 ** 31), (3, 2, 3),
+                                                (8, 3, 2)])
+def test_block_kernels_small_tiles(cuda, length, n_cols, num_keys, hi):
+    """Tiles of 1 to 1024 rows: one row a thread under 32 full threads,
+    then the full rows in one warp and more."""
+    cols = _cols(4096, n_cols, length, hi)
+    for k in (0, 2 * length):
+        _block_pair(cols, length, k, num_keys, cuda)
+
+
+@pytest.mark.parametrize("n_cols,num_keys", [(1, 1), (3, 2)])
+def test_block_kernels_on_unaligned_columns(cuda, n_cols, num_keys):
+    """Columns that start 4 bytes past a 16-byte boundary: slices [1:] of
+    longer buffers."""
+    m = _default_merge(n_cols)
+    cols = _cols(2 * m, n_cols, 5, 3)
+    bufs = [torch.zeros(2 * m + 1, dtype=torch.int32, device=cuda)
+            for _ in cols]
+    a = []
+    for buf, c in zip(bufs, cols):
+        buf[1:] = c.to(cuda)
+        a.append(buf[1:])
+    assert all(x.data_ptr() % 16 == 4 for x in a)
+    b = [c.clone() for c in cols]
+    bk.reset_launches()
+    bk.block_sort_(a, m, num_keys)
+    bk.block_merge_(a, m, 0, num_keys)
+    bk.block_sort_plain(b, m, num_keys)
+    bk.block_merge_plain(b, m, 0, num_keys)
+    torch.cuda.synchronize()
+    assert bk.launches["block_sort"] == bk.launches["block_merge"] == 1
+    for x, y in zip(a, b):
+        assert torch.equal(x.cpu(), y)
+    for buf in bufs:
+        assert int(buf[0]) == 0
+
+
+@pytest.mark.parametrize("n_cols,num_keys,hi", [(1, 1, 2 ** 31), (3, 2, 4)])
+def test_block_kernels_back_to_back(cuda, n_cols, num_keys, hi):
+    """Five rounds of block_sort and block_merge queued on one stream with
+    no synchronisation between them."""
+    m = _default_merge(n_cols)
+    _block_pair(_cols(4 * m, n_cols, 21, hi), m, 2 * m, num_keys, cuda,
+                reps=5)
 
 
 def test_launch_counts_and_sorter(cuda):
