@@ -285,6 +285,73 @@ def band_kernel_records(dev):
     return recs
 
 
+def block_sort_ptxas(log):
+    """{"<columns, rows>": "<spill line>; <registers line>"} of the
+    block_sort_kernel instances (which block_sort and multi_stage share),
+    read from nvcc's -Xptxas -v log: each entry line is followed by its
+    spill line, then its register line."""
+    import re
+    out, inst = {}, None
+    for line in log.splitlines():
+        m = re.search(r"'_Z\d+block_sort_kernelILi(\d+)ELi(\d+)E", line)
+        if m:
+            inst = f"<{m.group(1)}, {m.group(2)}>"
+            out[inst] = []
+        elif inst and ("spill" in line or "registers" in line):
+            out[inst].append(line.replace("ptxas info    :", "").strip())
+            if "registers" in line:
+                inst = None
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def bitonic_record(name, kern, plain, args, state, num_keys, steps, library,
+                   shape):
+    """One fused-schedule kernel against its plain version on copies of
+    `state`, timed (each run from the same input) beside its plain version
+    and the library call; returns (record, the plain version's output)."""
+    import torch
+    n, nc = state[0].numel(), len(state)
+    src = [c.clone() for c in state]
+    work = [c.clone() for c in state]
+    ref = [c.clone() for c in state]
+    kern(work, *args, num_keys=num_keys)
+    plain(ref, *args, num_keys)
+    torch.cuda.synchronize()
+    err = max_abs_err(work, ref)
+    if err != 0:
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version (max abs err {err})")
+
+    def restore():
+        for w, s in zip(work, src):
+            w.copy_(s)
+    ms = cuda_ms(lambda: kern(work, *args, num_keys=num_keys), 7, restore)
+    plain_ms = cuda_ms(lambda: plain(work, *args, num_keys), 3, restore)
+    lib_ms = cuda_ms(library, 5) if library is not None else None
+    return kernel_record(name, "cl_ops_tpu_torch/csrc/bitonic.cu", err, ms,
+                         plain_ms, 2 * nc * 4 * n,
+                         2 * num_keys * (n // 2) * steps, lib_ms, shape), ref
+
+
+def groupby_multi_stage_record(dev):
+    """multi_stage at GROUP BY 256M x 1M's geometry: (key, value) columns,
+    one key column with 256 rows a key, on the runs block_sort leaves."""
+    import torch
+    from cl_ops_tpu_torch.ops.sort import bitonic as bt
+    from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cols = [torch.randint(0, hi, (GROUPBY_N,), dtype=torch.int32, device=dev,
+                          generator=gen) for hi in (GROUPBY_G, 100)]
+    b, m = bt.resolve_geometry(GROUPBY_N, 2)
+    bk.block_sort_(cols, b, 1)
+    steps = sum(range(b.bit_length(), m.bit_length()))
+    rec, _ = bitonic_record(
+        "multi_stage", bk.multi_stage_, bk.multi_stage_plain, (b, m), cols, 1,
+        steps, None, f"n={GROUPBY_N} cols=2 num_keys=1 block={b} merge={m} "
+                     f"(GROUP BY 256M x 1M)")
+    return rec
+
+
 def block_scan_records(dev, n):
     """scan_block (uint32 bits, float32) and scan_block_wide (uint32 ->
     64-bit sums) against their plain versions, with the tile bases the
@@ -1255,6 +1322,8 @@ def main() -> int:
             if any(w in line for w in ("registers", "Compiling entry",
                                        "spill")):
                 print("ptxas:", line.strip())
+        for inst, usage in block_sort_ptxas(bk.build_log).items():
+            print(f"block_sort/multi_stage {inst}: {usage}")
 
     # -- each kernel against its plain version, at the main-path shapes -------
     def kernel_table(cols, num_keys, library):
@@ -1278,32 +1347,11 @@ def main() -> int:
         state = [c.clone() for c in cols]
         for name in bk.FUSED:
             kern, plain, args = calls[name]
-            src = [c.clone() for c in state]
-            work = [c.clone() for c in state]
-            ref = [c.clone() for c in state]
-            kern(work, *args, num_keys=num_keys)
-            plain(ref, *args, num_keys)
-            torch.cuda.synchronize()
-            err = max_abs_err(work, ref)
-            if err != 0:
-                raise AssertionError(f"{name}: kernel differs from its plain "
-                                     f"version (max abs err {err})")
-
-            def restore(work=work, src=src):
-                for w, s in zip(work, src):
-                    w.copy_(s)
-            ms = cuda_ms(lambda: kern(work, *args, num_keys=num_keys), 7,
-                         restore)
-            plain_ms = cuda_ms(lambda: plain(work, *args, num_keys), 3,
-                               restore)
-            lib = library.get(name)
-            lib_ms = cuda_ms(lib, 5) if lib is not None else None
-            recs.append(kernel_record(
-                name, "cl_ops_tpu_torch/csrc/bitonic.cu", err, ms, plain_ms,
-                2 * nc * 4 * n, 2 * num_keys * (n // 2) * steps[name],
-                lib_ms, f"n={n} cols={nc} num_keys={num_keys} "
-                        f"block={b} merge={m}"))
-            state = ref  # the next kernel's input (kernel and plain agree)
+            rec, state = bitonic_record(
+                name, kern, plain, args, state, num_keys, steps[name],
+                library.get(name), f"n={n} cols={nc} num_keys={num_keys} "
+                                   f"block={b} merge={m}")
+            recs.append(rec)  # the next kernel's input: its plain output
         return recs
 
     with phase("kernels vs plain"):
@@ -1324,7 +1372,8 @@ def main() -> int:
             rng.integers(0, 2 ** 32, SORT_N, dtype=np.uint32), dev)
         kv_recs = kernel_table(
             keymod.to_limbs(keys64) + [vals32.view(torch.int32)], 2, {})
-        for r in u32_recs + kv_recs:
+        gb_rec = groupby_multi_stage_record(dev)
+        for r in u32_recs + kv_recs + [gb_rec]:
             print("kernel", json.dumps(r))
 
     with phase("scan kernels vs plain"):

@@ -14,13 +14,15 @@
 // pair in stage K is ascending iff (global index of lo) & K == 0; K = 0
 // makes every pair ascending (the final merge of a bitonic sequence).
 //
-// All five kernels work in place. Each launch of the fused schedule's four
+// Four kernels serve five entry points, all in place. Each launch of the
+// fused schedule's four (block_sort, multi_stage, pair_cross, block_merge)
 // reads and writes every column once, 2 * n_cols * 4 * n bytes of device
-// memory: the kernels that keep a block on chip run many network steps per
-// such sweep (block_sort and block_merge most of them in registers), and
-// the one that works in device memory (pair_cross) runs one step per sweep
-// with neighbouring threads on neighbouring addresses. whole_sort runs the
-// whole network in one cooperative launch, with most steps in registers.
+// memory: the ones that keep a tile on chip run many network steps per such
+// sweep, most of them in registers (block_sort_kernel serves block_sort and
+// multi_stage, which differ only in their first stage; block_merge_kernel),
+// and the one that works in device memory (pair_cross) runs one step per
+// sweep with neighbouring threads on neighbouring addresses. whole_sort runs
+// the whole network in one cooperative launch, with most steps in registers.
 //
 // Each entry point launches on the stream it is given, allocates nothing and
 // returns cudaGetLastError() (0 on success).
@@ -40,80 +42,6 @@ namespace cg = cooperative_groups;
 struct Cols {
   int32_t* p[MAX_COLS];
 };
-
-// Strict order of rows a and b over the key prefix: -1 a<b, 1 a>b, 0 tied.
-// `s` is a column-major block of `len` rows (column c at s + c * len).
-__device__ __forceinline__ int order_smem(const int32_t* s, int len, int a,
-                                          int b, int num_keys) {
-#pragma unroll
-  for (int c = 0; c < MAX_COLS; ++c) {
-    if (c >= num_keys) break;
-    int32_t x = s[c * len + a], y = s[c * len + b];
-    if (x != y) return x < y ? -1 : 1;
-  }
-  return 0;
-}
-
-// Steps j = j_first .. 1 of stage `k` over one block held in shared memory;
-// `base` is the block's first global index (it sets each pair's direction).
-__device__ void smem_steps(int32_t* s, int len, unsigned base, unsigned k,
-                           int j_first, int n_cols, int num_keys) {
-  for (int j = j_first; j > 0; j >>= 1) {
-    for (int p = threadIdx.x; p < len / 2; p += blockDim.x) {
-      int lo = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-      int hi = lo + j;
-      bool asc = ((base + (unsigned)lo) & k) == 0;
-      int ord = order_smem(s, len, lo, hi, num_keys);
-      if (asc ? ord > 0 : ord < 0) {
-#pragma unroll
-        for (int c = 0; c < MAX_COLS; ++c) {
-          if (c >= n_cols) break;
-          int32_t t = s[c * len + lo];
-          s[c * len + lo] = s[c * len + hi];
-          s[c * len + hi] = t;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__device__ void load_block(const Cols& cols, int32_t* s, int len,
-                           unsigned base, int n_cols) {
-#pragma unroll
-  for (int c = 0; c < MAX_COLS; ++c) {
-    if (c >= n_cols) break;
-    const int32_t* src = cols.p[c] + base;
-    for (int i = threadIdx.x; i < len; i += blockDim.x) s[c * len + i] = src[i];
-  }
-  __syncthreads();
-}
-
-__device__ void store_block(const Cols& cols, const int32_t* s, int len,
-                            unsigned base, int n_cols) {
-#pragma unroll
-  for (int c = 0; c < MAX_COLS; ++c) {
-    if (c >= n_cols) break;
-    int32_t* dst = cols.p[c] + base;
-    for (int i = threadIdx.x; i < len; i += blockDim.x) dst[i] = s[c * len + i];
-  }
-}
-
-// multi_stage: replaces bitonic_kernels.py _multi_stage_kernel. Stages
-// K = 2 * block .. merge inside blocks of `merge` rows (sorted runs of
-// `block` rows in alternating directions come in). Unlike the TPU kernel it
-// compares only the key prefix. Bound: one sweep of every column; a merge
-// block as large as shared memory allows absorbs log2(merge/block) stages
-// into that sweep.
-__global__ void multi_stage_kernel(Cols cols, int n_cols, int num_keys,
-                                   int block, int merge) {
-  extern __shared__ int32_t smem[];
-  unsigned base = blockIdx.x * (unsigned)merge;
-  load_block(cols, smem, merge, base, n_cols);
-  for (unsigned k = 2u * block; k <= (unsigned)merge; k <<= 1)
-    smem_steps(smem, merge, base, k, (int)(k >> 1), n_cols, num_keys);
-  store_block(cols, smem, merge, base, n_cols);
-}
 
 // One compare-exchange of step (k, j) in device memory: pair p is
 // (lo, lo + j). The pair_cross kernel runs it.
@@ -579,12 +507,17 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   scatter<NC>(cols, vec, smem, P, S, base, S, S);
 }
 
-// block_sort and block_merge: replace bitonic_kernels.py _block_sort_kernel
-// and _block_merge_kernel. Each block holds one tile of S rows (the sort
-// block B, or the merge block M) and runs on it
+// block_sort, multi_stage and block_merge: replace bitonic_kernels.py
+// _block_sort_kernel, _multi_stage_kernel and _block_merge_kernel. Each
+// block holds one tile of S rows (the sort block B, or the merge block M)
+// and runs on it
 //   block_sort   every stage K = 2 .. S, steps K/2 .. 1 (with several
 //                tiles the top stage alternates by tile parity: a pair's
 //                direction comes from its global index, base + i);
+//   multi_stage  the same kernel from stage K = 2B: stages 2B .. M of each
+//                M-row tile, whose runs of B rows come in sorted in
+//                alternating directions (unlike the TPU kernel it compares
+//                only the key prefix);
 //   block_merge  the steps S/2 .. 1 of one stage k (k = 0: all ascending),
 // each step placed as in whole_sort (local_steps). Bound: one read and one
 // write of every column. Each of the T = S / R threads holds R rows of
@@ -601,8 +534,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 // rows t + m T), so each warp access is one 128-byte line of a column, a
 // thread has all its loads in flight at once, and no column needs more than
 // 4-byte alignment. block_merge runs its steps at d >= T on the rows as
-// they arrive, before the first transpose. At 7 columns and 8192 rows the
-// tile (56 data registers of 64) still spills.
+// they arrive, before the first transpose (in multi_stage's first stage
+// that made the 3-column instance spill registers, so multi_stage takes
+// them from shared memory, like every later stage).
+// At 7 columns and 8192 rows the tile (56 data registers of 64) still
+// spills.
 
 // One pad word per 32 rows, but none at 7 columns: their padded
 // 8192-row tile would not fit the 227 KB a block may use.
@@ -675,27 +611,32 @@ __device__ __forceinline__ void store_tile(const Cols& cols,
   }
 }
 
+// Stages k0 .. S of each tile: block_sort passes k0 = 2, multi_stage 2B
+// (k0 > S: the tile goes back as it came).
 template <int NC, int R>
 __global__ void __launch_bounds__(BlockTile<NC, R>::kMaxThreads)
-    block_sort_kernel(Cols cols, int num_keys, unsigned S) {
+    block_sort_kernel(Cols cols, int num_keys, unsigned S, unsigned k0) {
   constexpr int SH = block_pad_shift(NC);
   extern __shared__ int32_t smem[];
   const unsigned P = S + (S >> SH);
   const unsigned mask =
       blockDim.x >= 32 ? 0xFFFFFFFFu : (1u << blockDim.x) - 1;
   const unsigned base = blockIdx.x * S;
+  const unsigned kw = S < 32u * R ? S : 32u * R;
   int32_t v[NC][R];
   load_tile<NC, R>(cols, v, base);
   trans_to_smem<NC, R, SH>(v, smem, P);
   __syncthreads();
-  // the stages whose steps stay within a warp's rows, on the registers;
-  // then each later stage from and to shared memory
-  const unsigned kw = S < 32u * R ? S : 32u * R;
-  smem_to_regs<NC, R, SH>(v, smem, P);
-  for (unsigned k = 2; k <= kw; k <<= 1)
-    warp_steps<NC, R>(v, num_keys, base, k, k >> 1, 1, mask);
-  regs_to_smem<NC, R, SH>(v, smem, P);
-  for (unsigned k = 2 * kw; k <= S; k <<= 1) {
+  unsigned k = k0;
+  if (k <= kw) {
+    // the stages whose steps stay within a warp's rows, on the registers
+    smem_to_regs<NC, R, SH>(v, smem, P);
+    for (; k <= kw; k <<= 1)
+      warp_steps<NC, R>(v, num_keys, base, k, k >> 1, 1, mask);
+    regs_to_smem<NC, R, SH>(v, smem, P);
+  }
+  // each later stage from and to shared memory
+  for (; k <= S; k <<= 1) {
     __syncthreads();
     local_steps<NC, R, SH, true>(v, smem, P, S, num_keys, base, k, k >> 1,
                                  1, mask, true, true);
@@ -742,28 +683,10 @@ static Cols make_cols(void* const* ptrs, int n_cols) {
   return c;
 }
 
-// One thread per compare-exchange of a block, at least one (a 1-row block
-// has no exchanges but still launches) and at most MAX_THREADS.
-static int threads_for(int len) {
-  int t = len / 2 < MAX_THREADS ? len / 2 : MAX_THREADS;
-  return t > 0 ? t : 1;
-}
-
 template <typename Kernel>
 static int set_smem(Kernel kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-extern "C" int clo_multi_stage(void* const* ptrs, int n_cols, int num_keys,
-                               int n, int block, int merge, void* stream) {
-  size_t smem = (size_t)n_cols * merge * sizeof(int32_t);
-  int err = set_smem(multi_stage_kernel, smem);
-  if (err) return err;
-  multi_stage_kernel<<<n / merge, threads_for(merge), smem,
-                       (cudaStream_t)stream>>>(make_cols(ptrs, n_cols), n_cols,
-                                               num_keys, block, merge);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int clo_pair_cross(void* const* ptrs, int n_cols, int num_keys,
@@ -800,7 +723,7 @@ static int launch_block(bool merge, Cols cols, int num_keys, unsigned n,
     err = set_smem(block_sort_kernel<NC, R>, smem);
     if (err) return err;
     block_sort_kernel<NC, R><<<n / len, threads, smem, stream>>>(
-        cols, num_keys, len);
+        cols, num_keys, len, k);
   }
   return (int)cudaGetLastError();
 }
@@ -814,11 +737,12 @@ static int launch_block_rows(bool merge, Cols cols, int num_keys, unsigned n,
   return launch_block<NC, 1>(merge, cols, num_keys, n, len, k, stream);
 }
 
+// k: block_merge's stage, or block_sort_kernel's first stage.
 static int launch_block_cols(bool merge, void* const* ptrs, int n_cols,
-                             int num_keys, int n, int len, int k,
+                             int num_keys, int n, int len, unsigned uk,
                              void* stream) {
   Cols c = make_cols(ptrs, n_cols);
-  unsigned un = (unsigned)n, ul = (unsigned)len, uk = (unsigned)k;
+  unsigned un = (unsigned)n, ul = (unsigned)len;
   cudaStream_t st = (cudaStream_t)stream;
   switch (n_cols) {
     case 1: return launch_block_rows<1>(merge, c, num_keys, un, ul, uk, st);
@@ -835,14 +759,20 @@ static int launch_block_cols(bool merge, void* const* ptrs, int n_cols,
 
 extern "C" int clo_block_sort(void* const* ptrs, int n_cols, int num_keys,
                               int n, int block, void* stream) {
-  return launch_block_cols(false, ptrs, n_cols, num_keys, n, block, 0,
+  return launch_block_cols(false, ptrs, n_cols, num_keys, n, block, 2,
                            stream);
+}
+
+extern "C" int clo_multi_stage(void* const* ptrs, int n_cols, int num_keys,
+                               int n, int block, int merge, void* stream) {
+  return launch_block_cols(false, ptrs, n_cols, num_keys, n, merge,
+                           2u * (unsigned)block, stream);
 }
 
 extern "C" int clo_block_merge(void* const* ptrs, int n_cols, int num_keys,
                                int n, int merge, int k, void* stream) {
-  return launch_block_cols(true, ptrs, n_cols, num_keys, n, merge, k,
-                           stream);
+  return launch_block_cols(true, ptrs, n_cols, num_keys, n, merge,
+                           (unsigned)k, stream);
 }
 
 // The block kernels' geometry, for bitonic_kernels.block_geometry to check.

@@ -44,6 +44,9 @@ DIRECT_MAX = WINDOW         # build rows coverable without sorting probes
 ROW = 128                   # probes per probe row (JAX LANES)
 PROBE_ROWS = 512            # probe rows per probe block: 64K probes
 MAX_VALS = 3                # csrc/bandprobe.cu MAX_VALS
+WHOLE_THREADS = 512         # threads of a whole-side block (csrc)
+SUB_THREADS = 256           # threads of a sub-window block (csrc)
+SMEM_MAX = 232448           # shared memory one Hopper block can use
 KERNELS = ("probe_band",)
 
 _I32_MAX = 0x7FFFFFFF
@@ -80,6 +83,17 @@ def load_kernels():
         if lib.clo_band_window() != WINDOW:
             raise RuntimeError("csrc/bandprobe.cu WINDOW differs from "
                                "bandprobe.WINDOW")
+        lib.clo_band_geometry.argtypes = [ll, i, i, ctypes.POINTER(ll)]
+        lib.clo_band_geometry.restype = i
+        out = (ll * 4)()
+        for nb in (0, 1000, WINDOW, WINDOW + 1, 1 << 24):
+            for nl in (1, 2):
+                for nv in range(1, MAX_VALS + 1):
+                    lib.clo_band_geometry(nb, nl, nv, out)
+                    if tuple(out) != band_geometry(nb, nl, nv):
+                        raise RuntimeError("csrc/bandprobe.cu band_geometry "
+                                           "differs from "
+                                           "bandprobe.band_geometry")
         _lib = lib
     return _lib
 
@@ -135,10 +149,28 @@ def _check(build_limbs, vals, probe_limbs, starts, probe_block) -> bool:
     return dev.type == "cuda"
 
 
+def band_geometry(nb: int, n_limbs: int, n_vals: int
+                  ) -> tuple[int, int, int, int]:
+    """(whole, threads, staged rows, shared-memory bytes) of a probe_band
+    launch against nb build rows (csrc/bandprobe.cu band_geometry, which
+    load_kernels checks against this). whole: the build side is one window
+    (nb <= WINDOW), and each persistent block of WHOLE_THREADS stages all
+    of it in whole 32-row lines (the stage swizzles rows within a line),
+    its value columns too where keys and values fit SMEM_MAX. Otherwise
+    blocks of SUB_THREADS search device memory and stage nothing."""
+    whole = nb <= WINDOW
+    if not whole:
+        return 0, SUB_THREADS, 0, 0
+    cap = -(-nb // 32) * 32
+    staged = n_limbs + (n_vals if (n_limbs + n_vals) * cap * 4 <= SMEM_MAX
+                        else 0)
+    return 1, WHOLE_THREADS, cap, staged * cap * 4
+
+
 def probe_band_plain(build_limbs, vals, probe_limbs, starts,
                      probe_block: int):
-    """Plain version of probe_band: the kernel's 15-step search of each
-    probe in its block's window, as whole-tensor gathers."""
+    """Plain version of probe_band: a 15-step binary search of each probe
+    in its block's window, as whole-tensor gathers."""
     nb, m = build_limbs[0].numel(), probe_limbs[0].numel()
     dev = probe_limbs[0].device
     blk = torch.arange(m, dtype=torch.int64, device=dev) // probe_block

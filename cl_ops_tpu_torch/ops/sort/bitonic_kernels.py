@@ -1,4 +1,4 @@
-"""The bitonic sorts: host schedules, five CUDA kernels, plain versions.
+"""The bitonic sorts: host schedules, five CUDA entry points, plain versions.
 
 Counterpart of `cl_ops_tpu/ops/sort/bitonic_kernels.py`. The data is a tuple
 of 1-D int32 columns of one power-of-two length; rows order by signed-i32
@@ -19,7 +19,8 @@ Every compare-exchange is in pair form: the two rows swap, all columns
 together, only when strictly out of order for the pair's direction, which is
 ascending iff (global index of the lower partner) & K == 0. So ties never
 duplicate a row, and a kernel and its plain version agree bit for bit, ties
-included. The CUDA kernels live in `csrc/bitonic.cu` and work in place.
+included. The CUDA kernels live in `csrc/bitonic.cu` and work in place;
+multi_stage runs block_sort's kernel from stage 2B, at the merge tile.
 
 Each wrapper (`block_sort_`, `multi_stage_`, `pair_cross_`, `block_merge_`,
 `whole_sort_`) runs the plain PyTorch version on CPU tensors and launches its
@@ -263,8 +264,9 @@ def block_merge_(cols, merge: int, k: int, num_keys: int | None = None):
 
 
 def block_tiles():
-    """Every (columns, tile rows) that _check admits for block_sort_ and
-    block_merge_: power-of-two tiles whose columns fit SMEM_MAX."""
+    """Every (columns, tile rows) that _check admits for block_sort_,
+    multi_stage_ (its merge tile) and block_merge_: power-of-two tiles whose
+    columns fit SMEM_MAX."""
     for c in range(1, MAX_COLS + 1):
         length = 1
         while c * length * 4 <= SMEM_MAX:
@@ -273,12 +275,13 @@ def block_tiles():
 
 
 def block_geometry(n_cols: int, length: int) -> tuple[int, int, int]:
-    """(threads, rows per thread, shared-memory bytes) of a block_sort or
-    block_merge tile of `length` rows (csrc/bitonic.cu block_rows and
-    block_smem, which load_kernels checks against this): 32 rows a thread
-    at 1-3 columns, 16 at 4, 8 at more, 1 in tiles under 32 such threads;
-    one pad word per 32 rows of a column, none at 7 columns (whose padded
-    8192-row tile would not fit SMEM_MAX)."""
+    """(threads, rows per thread, shared-memory bytes) of a block_sort,
+    multi_stage (at its merge tile) or block_merge tile of `length` rows
+    (csrc/bitonic.cu block_rows and block_smem, which load_kernels checks
+    against this): 32 rows a thread at 1-3 columns, 16 at 4, 8 at more, 1
+    in tiles under 32 such threads; one pad word per 32 rows of a column,
+    none at 7 columns (whose padded 8192-row tile would not fit
+    SMEM_MAX)."""
     full = 32 if n_cols <= 3 else 16 if n_cols == 4 else 8
     rows = full if length >= 32 * full else 1
     shift = 31 if n_cols == 7 else 5

@@ -1,13 +1,16 @@
 """The band probe of cl_ops_tpu_torch (`ops/exec/bandprobe.py`) against
-cl_ops_tpu's `_probe_band_kernel` (interpret mode) and numpy's
-searchsorted. The CPU runs the port's plain version of its probe_band
-kernel. val_next is compared only where count < nb: both packages leave it
-undefined at count == nb."""
+cl_ops_tpu's `_probe_band_kernel` (interpret mode), numpy's searchsorted
+and, at the kernel's edge cases (`torch_band_cases.py`), a numpy oracle of
+the windowed definition. The CPU runs the port's plain version of its
+probe_band kernel. Against JAX, val_next is compared only where count <
+nb: both packages leave it undefined at count == nb; the port's definition
+fixes it (vals[nb - 1]), and the oracle checks it."""
 
 import numpy as np
 import pytest
 import torch
 
+import torch_band_cases as cases
 from cl_ops_tpu_torch.core.errors import BadArgsError
 from cl_ops_tpu_torch.ops.exec import bandprobe as bp
 
@@ -223,3 +226,63 @@ def test_band_pass_traffic_bytes():
     # a small build side is read whole, once per probe block
     assert bp.band_pass_traffic_bytes(70000, 2, 1000, n_vals=3) == \
         8 * 70000 + 29 * 70000 + 2 * 1000 * 5 * 4
+
+
+@pytest.mark.parametrize("name", cases.NAMES)
+def test_band_edge_cases_match_the_definition(name):
+    """The row before the window, probes below every window row, nb = 0
+    and 1, windows clamped at nb, equal high limbs, a short last probe
+    block, equal runs across chunk edges and an unsorted chunk among
+    sorted ones: count, eq and both values by the definition."""
+    build, vals, probes, starts, block = cases.case(name)
+    got = bp.probe_band(*cases.as_torch(build, vals, probes, starts), block)
+    count, eq, vp, vn = cases.oracle(build, vals, probes, starts, block)
+    np.testing.assert_array_equal(got[0].numpy(), count)
+    np.testing.assert_array_equal(got[1].numpy(), eq)
+    for g, w in zip(got[2] + got[3], vp + vn):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("name", ["nb = 1", "equal high limbs",
+                                  "equal runs across chunk edges"])
+def test_band_edge_cases_match_reference(name):
+    """The cases that the JAX entry points reach (probe_direct for the
+    one-row build side; probe_banded_sorted at 16K-probe blocks, whose
+    window starts the sorted cases use): the Pallas kernel agrees."""
+    build, vals, probes, starts, block = cases.case(name)
+    j = [[jnp.asarray(np.ascontiguousarray(c)) for c in a.T]
+         for a in (build, vals, probes)]
+    t = [tuple(_t(c) for c in a.T) for a in (build, vals, probes)]
+    if name == "nb = 1":
+        want = jbp.probe_direct(tuple(j[0]), tuple(j[1]), tuple(j[2]),
+                                interpret=True)
+        got = bp.probe_direct(*t)
+    else:
+        want = jbp.probe_banded_sorted(tuple(j[0]), tuple(j[1]),
+                                       tuple(j[2]), interpret=True,
+                                       probe_rows=block // bp.ROW)
+        got = bp.probe_banded_sorted(*t, probe_rows=block // bp.ROW)
+        assert bool(got[4]) == bool(want[4]) is False
+    _assert_same(_np(got), want, len(build))
+
+
+def test_band_geometry():
+    """The kernel's launch geometry (band_geometry, which the loader checks
+    against csrc/bandprobe.cu): a build side of one window is staged whole
+    by 512-thread blocks in whole 32-row lines, its values too where keys
+    and values fit one block's shared memory; larger sides stage nothing."""
+    whole = bp.WHOLE_THREADS
+    assert bp.band_geometry(bp.DIRECT_MAX, 1, 1) == \
+        (1, whole, bp.DIRECT_MAX, 2 * bp.DIRECT_MAX * 4)
+    assert bp.band_geometry(bp.DIRECT_MAX, 2, 3) == \
+        (1, whole, bp.DIRECT_MAX, 2 * bp.DIRECT_MAX * 4)  # values: device
+    assert bp.band_geometry(0, 1, 1) == (1, whole, 0, 0)
+    assert bp.band_geometry(1000, 2, 1) == (1, whole, 1024, 3 * 1024 * 4)
+    for nb in (bp.WINDOW + 1, 1 << 20, 1 << 24):
+        assert bp.band_geometry(nb, 2, 3) == (0, bp.SUB_THREADS, 0, 0)
+    for nb in range(0, bp.WINDOW + 1, 1000):
+        for nl in (1, 2):
+            for nv in range(1, bp.MAX_VALS + 1):
+                _, _, cap, smem = bp.band_geometry(nb, nl, nv)
+                assert cap % 32 == 0 and nb <= cap < nb + 32
+                assert nl * cap * 4 <= smem <= bp.SMEM_MAX

@@ -62,3 +62,30 @@ def test_seven_columns_run_unpadded():
         assert bk.block_geometry(7, length)[2] == 7 * length * 4
     assert bk.block_geometry(6, 8192)[2] == 6 * (8192 + 256) * 4
     assert 7 * (8192 + 256) * 4 > bk.SMEM_MAX
+
+
+@pytest.mark.parametrize("n_cols", range(1, bk.MAX_COLS + 1))
+def test_multi_stage_admits_block_merges_tiles(n_cols):
+    """multi_stage_ runs block_sort's kernel at its merge tile, so it takes
+    exactly the tiles block_merge_ takes (block_tiles), each at
+    block_geometry(n_cols, merge); on the CPU a tile with no stage to run
+    (2 * block > merge) is accepted and leaves the rows as they are."""
+    lengths = [length for c, length in bk.block_tiles() if c == n_cols]
+    largest = lengths[-1]
+    cols = [torch.arange(4 * largest, dtype=torch.int32).flip(0)
+            for _ in range(n_cols)]
+    want = [c.clone() for c in cols]
+    bk.reset_launches()
+    for merge in lengths:
+        bk.multi_stage_(cols, merge, merge)
+        bk.block_merge_(cols, 1, 0)  # no step: a 1-row merge tile
+    for merge in (2 * largest, 4 * largest):
+        with pytest.raises(BadArgsError):
+            bk.multi_stage_(cols, 1, merge)
+        with pytest.raises(BadArgsError):
+            bk.block_merge_(cols, merge, 0)
+    assert all(torch.equal(c, w) for c, w in zip(cols, want))
+    assert bk.launches == dict.fromkeys(bk.KERNELS, 0)  # plain versions
+    # the merge tile's geometry: the main path's default at each width
+    threads, rows, _ = bk.block_geometry(n_cols, largest)
+    assert threads * rows == largest and threads <= 1024

@@ -2,11 +2,16 @@
 
 Small and odd geometries that chip_smoke.py does not reach: up to MAX_COLS
 columns, key prefixes shorter than the row, tied prefixes, single-block
-arrays and the k = 0 merge; block_sort and block_merge at every column
-count's largest tile, at tiles of 1 to 1024 rows, on columns at an
-unaligned offset and back to back; scans of odd lengths, all ops and dtypes, with
-dense and nearly absent segment flags; the band probe with 1-2 limbs, 1-3
-value columns, empty and ragged build sides and several window starts; the
+arrays and the k = 0 merge; multi_stage, block_sort and block_merge at
+every tile that the wrappers admit, at every column count's largest tile
+with full and tied key prefixes, at tiles of 1 to 1024 rows, on columns at
+an unaligned offset and back to back; scans of odd lengths, all ops and
+dtypes, with dense and nearly absent segment flags; the band probe with 1-2
+limbs, 1-3 value columns, empty and ragged build sides and several window
+starts, and its edge cases (windows at the build's start and clamped at
+its end, probes below every window row, equal high limbs, ragged probe
+blocks, runs of equal probes across chunk edges, an unsorted chunk among
+sorted ones); the
 block scans at lengths 0, 1 and ragged tails; rank_hist with short tiles,
 radix 4-256 and digits outside the bins; pair_cross at distances 1-32;
 whole_sort up to its capacity and past it; the five sorters against numpy,
@@ -25,6 +30,7 @@ import json
 import numpy as np
 import pytest
 import torch
+import torch_band_cases as band_cases
 
 from cl_ops_tpu_torch import interop
 from cl_ops_tpu_torch.ops.exec import bandprobe as bp
@@ -108,17 +114,23 @@ def _default_merge(n_cols):
 
 
 def _block_pair(cols, length, k, num_keys, dev, reps=1):
-    """block_sort_ then block_merge_ (stage k), `reps` times back to back on
-    one stream, against their plain versions; checks both counters."""
+    """multi_stage_ (stages 2B .. length at B = length / 4, or from stage 2
+    at the smallest tiles), block_sort_ and block_merge_ (stage k) on
+    `length`-row tiles, `reps` times back to back on one stream, against
+    their plain versions; checks the three counters."""
     a = [c.to(dev) for c in cols]
     b = [c.clone() for c in cols]
+    sort_block = max(length // 4, 1)
     bk.reset_launches()
     for _ in range(reps):
+        bk.multi_stage_(a, sort_block, length, num_keys)
         bk.block_sort_(a, length, num_keys)
         bk.block_merge_(a, length, k, num_keys)
+        bk.multi_stage_plain(b, sort_block, length, num_keys)
         bk.block_sort_plain(b, length, num_keys)
         bk.block_merge_plain(b, length, k, num_keys)
     torch.cuda.synchronize()
+    assert bk.launches["multi_stage"] == reps
     assert bk.launches["block_sort"] == reps
     assert bk.launches["block_merge"] == reps
     for x, y in zip(a, b):
@@ -140,6 +152,18 @@ def test_block_kernels_at_default_merge_block(cuda, n_cols, keys):
     cols = _cols(4 * m, n_cols, 10 + n_cols, hi)
     for k in (0, m, 2 * m):
         _block_pair(cols, m, k, num_keys, cuda)
+
+
+@pytest.mark.parametrize("n_cols", range(1, bk.MAX_COLS + 1))
+def test_block_kernels_at_every_admitted_tile(cuda, n_cols):
+    """Every tile that _check admits at n_cols columns (R = 1 tiles, full
+    rows, the 7-column unpadded tiles), two tiles a call, a key prefix with
+    ties: multi_stage at its merge tile, block_sort and block_merge."""
+    num_keys = max(n_cols - 1, 1)
+    for c, length in bk.block_tiles():
+        if c == n_cols:
+            cols = _cols(2 * length, n_cols, length + n_cols, 3)
+            _block_pair(cols, length, 2 * length, num_keys, cuda)
 
 
 @pytest.mark.parametrize("length", [1, 2, 32, 64, 256, 512, 1024])
@@ -168,12 +192,15 @@ def test_block_kernels_on_unaligned_columns(cuda, n_cols, num_keys):
     assert all(x.data_ptr() % 16 == 4 for x in a)
     b = [c.clone() for c in cols]
     bk.reset_launches()
+    bk.multi_stage_(a, m // 4, m, num_keys)
     bk.block_sort_(a, m, num_keys)
     bk.block_merge_(a, m, 0, num_keys)
+    bk.multi_stage_plain(b, m // 4, m, num_keys)
     bk.block_sort_plain(b, m, num_keys)
     bk.block_merge_plain(b, m, 0, num_keys)
     torch.cuda.synchronize()
     assert bk.launches["block_sort"] == bk.launches["block_merge"] == 1
+    assert bk.launches["multi_stage"] == 1
     for x, y in zip(a, b):
         assert torch.equal(x.cpu(), y)
     for buf in bufs:
@@ -403,6 +430,24 @@ def test_probe_band_matches_plain(cuda, n_limbs, n_vals, nb):
         assert bp.launches["probe_band"] == 1
         _assert_band_equal(got, bp.probe_band_plain(build, vals, probes,
                                                     starts, block))
+
+
+@pytest.mark.parametrize("name", band_cases.NAMES)
+def test_probe_band_edge_cases(cuda, name):
+    """The kernel's edges (torch_band_cases.py; the CPU tests hold the
+    plain version to the definition there): the row before the window,
+    probes below every window row, nb = 0 and 1, clamped windows in both
+    forms, equal high limbs, a short last probe block, equal runs across
+    chunk edges, and an unsorted chunk among sorted ones that exceeds its
+    sub-window and searches device memory."""
+    build, vals, probes, starts, block = band_cases.case(name)
+    bp.reset_launches()
+    got = bp.probe_band(*band_cases.as_torch(build, vals, probes, starts,
+                                             cuda), block)
+    torch.cuda.synchronize()
+    assert bp.launches["probe_band"] == 1
+    _assert_band_equal(got, bp.probe_band_plain(
+        *band_cases.as_torch(build, vals, probes, starts), block))
 
 
 @pytest.mark.parametrize("n_limbs", [1, 2])
