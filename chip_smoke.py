@@ -3,8 +3,10 @@
 
 Builds the CUDA kernels from `cl_ops_tpu_torch/csrc/` (bitonic.cu, scan.cu,
 bandprobe.cu, radix.cu, dense_agg.cu and chunk_copy.cu, one nvcc per
-source, started together), holds each of the fourteen kernels against its
-plain PyTorch version at the main path's shapes, drives the main path
+source, started together), holds each of the fifteen kernel entry points
+against its plain PyTorch version at the main path's shapes (with each
+kernel's own device time from torch.profiler beside its event time),
+drives the main path
 (abitonic sort of 16M u32 keys, KV sort of 16M u64 keys with u32 values,
 sort_pipeline at 16M, filter_compact over 64M rows at 10% selectivity,
 GROUP BY of 256M rows into 1M groups, analytics_query over 64M rows,
@@ -27,8 +29,9 @@ with CUDA events. Run from the repository root:
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, before that one JSON line lists every kernel
-with its launches on the main path, time, bound and yardsticks, and before
-that the script's total seconds. Any
+with its launches on the main path, time, bound and yardsticks, before
+that the script's total seconds, and before that each CUDA kernel's device
+ms summed over the traced cells. Any
 failure raises and exits non-zero; without CUDA it exits non-zero at once.
 """
 
@@ -62,7 +65,7 @@ EXPAND_M, EXPAND_NB = 1 << 24, 1 << 22  # bench_all.py config 6
 ROLLUP_N, ROLLUP_DIM = 1 << 24, 1 << 20  # bench_all.py config 7
 STAR_N, STAR_DIM, STAR_CATS = 1 << 24, 1 << 14, 256  # README star_query
 BLOCK_SCAN_N = 1 << 26  # scan_bench.py: the top of its default sweep
-DENSE_N, DENSE_GROUPS = 1 << 24, (4, 200, 1024)  # dense_agg's kernel phase
+DENSE_N, DENSE_GROUPS = 1 << 24, (4, 8, 200, 1024)  # dense_agg's kernel phase
 Q1D_N = 1 << 26              # TPC-H Q1 over lineitem at about SF 10
 DENSE_BIG_N = 1 << 26        # DENSE_MAX_GROUPS groups
 WINDOW_N, WINDOW_G = 1 << 24, 1 << 16  # bench_all.py config 9
@@ -104,6 +107,47 @@ def cuda_ms(fn, reps, before=None):
     return statistics.median(times)
 
 
+# The CUDA kernel each kernel record times: a substring of its name in the
+# profiler (multi_stage is block_sort_kernel from stage 2B; both rank_hist
+# entry points run rank_hist_kernel).
+DEVICE_KERNEL = {
+    "block_sort": "block_sort_kernel", "multi_stage": "block_sort_kernel",
+    "pair_cross": "pair_cross_kernel", "block_merge": "block_merge_kernel",
+    "whole_sort": "whole_sort_kernel", "scan_carry": "carry_tiles",
+    "scan_carry_wide": "carry_tiles", "seg_scan_carry": "scan_tiles",
+    "scan_block": "scan_block_tiles", "scan_block_wide": "scan_block_tiles",
+    "probe_band": "probe_band_kernel", "rank_hist": "rank_hist_kernel",
+    "rank_hist_limb": "rank_hist_kernel", "dense_agg": "dense_agg_kernel",
+    "chunk_copy": "chunk_copy_kernel",
+}
+
+
+def kernel_ms(name, fn, reps, before=None):
+    """{"ms": fn's median time by CUDA events, wrapper included, "device_ms":
+    the kernel's own mean device time over reps runs in a torch.profiler
+    trace}; before() runs untimed ahead of each run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    ms = cuda_ms(fn, reps, before)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages()
+             if DEVICE_KERNEL[name] in e.key
+             and e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"ms": ms, "device_ms": us / 1e3 / reps}
+
+
+# Device ms of each of the port's CUDA kernels (DEVICE_KERNEL's values)
+# summed over every cell that device_breakdown traces.
+PROFILED_MS = dict.fromkeys(sorted(set(DEVICE_KERNEL.values())), 0.0)
+
 KERNEL_GROUPS = (("bitonic", ("block_sort", "multi_stage", "pair_cross",
                               "block_merge", "whole_sort")),
                  ("scan", ("scan_tiles", "carry_tiles", "scan_block_tiles")),
@@ -118,18 +162,28 @@ def device_breakdown(cell, fn):
     kernel group (the port's bitonic, scan, band-probe, rank_hist,
     dense_agg and chunk_copy kernels, torch's own kernels, copies and
     fills), the call's time on the
-    host clock and the device's idle share of it."""
+    host clock and the device's idle share of it. The trace takes device
+    activity only, after one traced warm-up call whose events are
+    dropped: without the warm-up, the H100's traces lost kernels late in
+    the script (the dense cells' dense_agg launches in every run)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    traced = []
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(
+                     p.key_averages())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+        prof.step()
     groups, top = {}, {}
-    for e in prof.key_averages():
+    for e in traced[0]:
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
         if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
@@ -143,6 +197,9 @@ def device_breakdown(cell, fn):
                 else "torch ops"
         groups[group] = groups.get(group, 0.0) + us / 1e3
         top[name[:60]] = top.get(name[:60], 0.0) + us / 1e3
+        for key in PROFILED_MS:
+            if key in name:
+                PROFILED_MS[key] += us / 1e3
     busy = sum(groups.values())
     print(json.dumps({
         "profile": cell, "wall_ms": wall_ms, "device_ms": busy,
@@ -152,15 +209,15 @@ def device_breakdown(cell, fn):
                                       key=lambda kv: -kv[1])[:8])}))
 
 
-def kernel_record(name, source, err, ms, plain_ms, nbytes, ops, library_ms,
+def kernel_record(name, source, err, times, plain_ms, nbytes, ops, library_ms,
                   shape, **extra):
-    """One kernel's line: its bound is the larger of nbytes over the memory
-    rate and ops over the 32-bit rate."""
+    """One kernel's line: `times` from kernel_ms; its bound is the larger of
+    nbytes over the memory rate and ops over the 32-bit rate."""
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
     ops_ms = ops / PEAK_OPS_S * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            **times, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, **extra, "shape": shape}
 
@@ -194,7 +251,8 @@ def scan_record(name, n, kern, plain, library, nbytes, shape, tol=None):
     del got, want
     # one add or compare per element
     return kernel_record(name, "cl_ops_tpu_torch/csrc/scan.cu", err,
-                         cuda_ms(kern, 7), cuda_ms(plain, 3), nbytes, n,
+                         kernel_ms(name, kern, 7), cuda_ms(plain, 3), nbytes,
+                         n,
                          cuda_ms(library, 7) if library else None, shape)
 
 
@@ -240,7 +298,7 @@ def band_record(shape, build, vals, probes, block, windowed):
     ops = 2 * nl * m * bp.WINDOW.bit_length()  # compare + select per step
     return kernel_record(
         "probe_band", "cl_ops_tpu_torch/csrc/bandprobe.cu", err,
-        cuda_ms(kern, 7), cuda_ms(plain, 3), nbytes, ops,
+        kernel_ms("probe_band", kern, 7), cuda_ms(plain, 3), nbytes, ops,
         cuda_ms(lambda: torch.searchsorted(lib_b, lib_p, right=True), 7),
         shape, model_bytes=bp.band_pass_traffic_bytes(m, nl, nb,
                                                       block // bp.ROW, nv))
@@ -325,7 +383,8 @@ def bitonic_record(name, kern, plain, args, state, num_keys, steps, library,
     def restore():
         for w, s in zip(work, src):
             w.copy_(s)
-    ms = cuda_ms(lambda: kern(work, *args, num_keys=num_keys), 7, restore)
+    ms = kernel_ms(name, lambda: kern(work, *args, num_keys=num_keys), 7,
+                   restore)
     plain_ms = cuda_ms(lambda: plain(work, *args, num_keys), 3, restore)
     lib_ms = cuda_ms(library, 5) if library is not None else None
     return kernel_record(name, "cl_ops_tpu_torch/csrc/bitonic.cu", err, ms,
@@ -637,13 +696,15 @@ def join_cells(dev, reset, count):
 
 
 def sort_family_kernel_records(dev):
-    """rank_hist over 16M digits at radix 16 and 256, pair_cross at J = 1,
+    """rank_hist over 16M digits at radix 16 and 256, rank_hist_limb over
+    16M limbs at a middle and the last shift of each, pair_cross at J = 1,
     16, 32 and 1024 over 16M u32 keys, and whole_sort at 1M, at its
     capacity (2^21 keys) and over 2^19 rows of three columns with two
     keys, each against its plain version and the library bit for bit."""
     import torch
     from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
     from cl_ops_tpu_torch.ops.sort import radix_kernels as rk
+    from cl_ops_tpu_torch.ops.sort import satradix as sr
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     n = SORT_N
     recs = {}
@@ -664,11 +725,36 @@ def sort_family_kernel_records(dev):
         # digit
         recs[f"rank_hist {radix}"] = kernel_record(
             "rank_hist", "cl_ops_tpu_torch/csrc/radix.cu", err,
-            cuda_ms(lambda: rk.rank_hist(d, radix), 7),
+            kernel_ms("rank_hist", lambda: rk.rank_hist(d, radix), 7),
             cuda_ms(lambda: rk.rank_hist_plain(d, radix, block), 3),
             8 * n + 4 * n_blocks * radix, n, None,
             f"n={n} radix={radix} tile={block}")
         del d
+        # the sorter's pass: the digit cut from a limb, at a middle shift
+        # and at the last (the sign bit's flip); read the limb, write rank
+        # and bucket and the histogram
+        limb = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), dtype=torch.int32,
+                             device=dev, generator=gen)
+        shifts = sr.pass_shifts(radix)
+        for shift in (shifts[len(shifts) // 2], shifts[-1]):
+            got = rk.rank_hist_limb(limb, shift, radix)
+            want = rk.rank_hist_limb_plain(limb, shift, radix, block)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if err:
+                raise AssertionError(f"rank_hist_limb radix {radix} shift "
+                                     f"{shift}: kernel differs from its "
+                                     f"plain version ({err})")
+            del got, want
+            recs[f"rank_hist_limb {radix} {shift}"] = kernel_record(
+                "rank_hist_limb", "cl_ops_tpu_torch/csrc/radix.cu", err,
+                kernel_ms("rank_hist_limb",
+                          lambda: rk.rank_hist_limb(limb, shift, radix), 7),
+                cuda_ms(lambda: rk.rank_hist_limb_plain(limb, shift, radix,
+                                                        block), 3),
+                12 * n + 4 * n_blocks * radix, n, None,
+                f"n={n} radix={radix} shift={shift} tile={block}")
+        del limb
     x = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), dtype=torch.int32,
                       device=dev, generator=gen)
     for j in (1, 16, 32, 1024):
@@ -685,7 +771,8 @@ def sort_family_kernel_records(dev):
             work[0].copy_(x)
         recs[f"pair_cross {j}"] = kernel_record(
             "pair_cross", "cl_ops_tpu_torch/csrc/bitonic.cu", err,
-            cuda_ms(lambda: bk.pair_cross_(work, 2 * j, j), 7, restore),
+            kernel_ms("pair_cross", lambda: bk.pair_cross_(work, 2 * j, j),
+                      7, restore),
             cuda_ms(lambda: bk.pair_cross_plain(work, 2 * j, j, 1), 3,
                     restore), 2 * 4 * n, 2 * (n // 2), None,
             f"n={n} cols=1 K={2 * j} J={j}")
@@ -706,7 +793,8 @@ def sort_family_kernel_records(dev):
         sl, rows = bk.whole_geometry(wn, 1)
         recs[f"whole_sort {wn}"] = kernel_record(
             "whole_sort", "cl_ops_tpu_torch/csrc/bitonic.cu", err,
-            cuda_ms(lambda: bk.whole_sort_(work), 7, restore),
+            kernel_ms("whole_sort", lambda: bk.whole_sort_(work), 7,
+                      restore),
             cuda_ms(lambda: bk.whole_sort_plain(work, 1), 3, restore),
             2 * 4 * wn, 2 * (wn // 2) * bk.sbitonic_steps(wn),
             cuda_ms(lambda: torch.sort(xw), 7),
@@ -739,7 +827,8 @@ def sort_family_kernel_records(dev):
     sl, rows = bk.whole_geometry(wn, 3)
     recs[f"whole_sort {wn}x3"] = kernel_record(
         "whole_sort", "cl_ops_tpu_torch/csrc/bitonic.cu", err,
-        cuda_ms(lambda: bk.whole_sort_(work, nk), 7, restore3),
+        kernel_ms("whole_sort", lambda: bk.whole_sort_(work, nk), 7,
+                  restore3),
         cuda_ms(lambda: bk.whole_sort_plain(work, nk), 3, restore3),
         2 * 3 * 4 * wn, 2 * nk * (wn // 2) * bk.sbitonic_steps(wn),
         cuda_ms(lib_sort3, 7),
@@ -989,7 +1078,8 @@ def query_kernel_records(dev):
         table = torch.zeros(g, dtype=torch.int32, device=dev)
         recs[f"dense_agg {g}"] = kernel_record(
             "dense_agg", "cl_ops_tpu_torch/csrc/dense_agg.cu", err,
-            cuda_ms(kern, 7), cuda_ms(plain, 3), dense_read_bytes(n, 3, True),
+            kernel_ms("dense_agg", kern, 7), cuda_ms(plain, 3),
+            dense_read_bytes(n, 3, True),
             n * len(reds),
             cuda_ms(lambda gid=gid, t=table: t.index_add_(0, gid, i32), 7),
             f"n={n} groups={g} masked; count, int32 sum, u32 min and max, "
@@ -1017,7 +1107,7 @@ def query_kernel_records(dev):
                              f"version (max abs err {err})")
     recs["chunk_copy"] = kernel_record(
         "chunk_copy", "cl_ops_tpu_torch/csrc/chunk_copy.cu", err,
-        cuda_ms(copy, 7), cuda_ms(copy_plain, 3),
+        kernel_ms("chunk_copy", copy, 7), cuda_ms(copy_plain, 3),
         chunk_copy_bytes(params, 1), 0, None,
         f"n={DMA_N} block={DMA_BLOCK} radix={DMA_RADIX} runs={len(lengths)} "
         f"chunks={n_chunks}", clone_ms=cuda_ms(src.clone, 7))
@@ -1725,12 +1815,14 @@ def main() -> int:
                           band_recs[f"{JOIN_BIG[0]}x{JOIN_BIG[1]}"],
                           family_recs["whole_sort 1048576"],
                           family_recs["rank_hist 16"],
+                          family_recs["rank_hist_limb 16 28"],
                           query_recs["dense_agg 4"],
                           query_recs["chunk_copy"]]
     u32_recs[2]["ms_by_distance"] = {
         j: family_recs[f"pair_cross {j}"]["ms"] for j in (1, 16, 32, 1024)}
     for r in summary:
         r["launches"] = main_launches[r["name"]]
+    print(json.dumps({"profiled_device_ms": PROFILED_MS}))
     print(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": summary}))
     print(smi)
@@ -1753,6 +1845,7 @@ REPLACES = {
     "probe_band": "cl_ops_tpu/ops/exec/bandprobe.py:87",
     "whole_sort": "cl_ops_tpu/ops/sort/bitonic_kernels.py:567",
     "rank_hist": "cl_ops_tpu/ops/sort/satradix.py:62",
+    "rank_hist_limb": "cl_ops_tpu/ops/sort/satradix.py:62",
     "dense_agg": "cl_ops_tpu/ops/exec/dense_agg.py:56",
     "chunk_copy": "cl_ops_tpu/ops/sort/dma_scatter.py:47",
 }

@@ -5,8 +5,9 @@ ints in [0, num_groups) and num_groups is small (TPC-H Q1 has 4 groups),
 sorting every row to aggregate into a few slots moves far more data than
 the problem needs: one pass over the rows into a table of num_groups slots
 per reduction does it. The CUDA kernel `dense_agg` (`csrc/dense_agg.cu`,
-replacing `_dense_kernel` and its lane combine) sends each row to its
-group's slot with shared-memory atomics; its plain version here is one
+replacing `_dense_kernel` and its lane combine) reads each distinct column
+once and sends each row to its group's slot with shared-memory atomics, in
+up to 64 copies of the table a block; its plain version here is one
 `index_add_` or `scatter_reduce_` per reduction.
 
 Exactness: integer sums wrap mod 2^32 and integer min/max/count are
@@ -23,7 +24,9 @@ version. `dense_agg` adds one to `launches["dense_agg"]` per launch.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -32,7 +35,7 @@ from cl_ops_tpu_torch.interop import signed_view
 from cl_ops_tpu_torch.ops.exec.aggregate import _mean
 from cl_ops_tpu_torch.ops.sort import keys as keymod
 from cl_ops_tpu_torch.utils import intmath
-from cl_ops_tpu_torch.utils.platform import build_library
+from cl_ops_tpu_torch.utils.platform import build_library, launch_stream
 
 __all__ = ["group_aggregate_dense_cols", "DENSE_MAX_GROUPS"]
 
@@ -146,19 +149,16 @@ def dense_agg(gid, mask, reductions, num_groups: int) -> torch.Tensor:
     if not _check(gid, mask, reductions, num_groups):
         return dense_agg_plain(gid, mask, reductions, num_groups)
     dev = gid.device
-    # each row of the table starts at its reduction's identity (fills on
-    # the device: a host-built table would wait for the stream)
-    out = torch.zeros((len(reductions), num_groups), dtype=torch.int32,
-                      device=dev)
-    for r, (_, kind, _) in enumerate(reductions):
-        if _IDENT[kind]:
-            out[r].fill_(_IDENT[kind])
+    out = _identities(dev, tuple(kind for _, kind, _ in reductions),
+                      num_groups).clone()
     if gid.numel() == 0:
         return out
     lib = load_kernels()
     per_launch = lib.clo_dense_agg_max_red()
-    with torch.cuda.device(dev):  # the library launches on it
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    here = dev.index == torch.cuda.current_device()
+    # the library launches on the current device
+    with contextlib.nullcontext() if here else torch.cuda.device(dev):
+        stream = launch_stream(dev)
         for lo in range(0, len(reductions), per_launch):
             part = reductions[lo:lo + per_launch]
             k = len(part)
@@ -175,6 +175,14 @@ def dense_agg(gid, mask, reductions, num_groups: int) -> torch.Tensor:
                                    f"{err}")
             launches["dense_agg"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _identities(dev, kinds, num_groups: int) -> torch.Tensor:
+    """The (len(kinds), num_groups) table of each reduction's identity, on
+    the device; dense_agg starts from a copy of it."""
+    ident = torch.tensor([_IDENT[k] for k in kinds], dtype=torch.int32)
+    return ident[:, None].expand(-1, num_groups).contiguous().to(dev)
 
 
 # --- the operator ------------------------------------------------------------

@@ -6,12 +6,13 @@ computes. Limbs are taken least significant first; in each limb, one pass
 per log2(radix)-bit digit of `limb ^ 0x80000000` (the key's unsigned bits),
 shift 0, bits, ... < 32, so a 64-bit key at radix 16 takes 16 passes. One
 pass is a stable partition by the digit:
-  1. rank_hist (CUDA kernel, radix_kernels.py): per tile of block_elems
-     digits, each element's rank among the tile's elements with its digit,
+  1. rank_hist_limb (CUDA kernel, radix_kernels.py): per tile of
+     block_elems rows, the digit cut from the limb, each row's rank among
+     the tile's rows with its digit and its bucket digit * n_blocks + tile,
      and the tile's digit histogram;
   2. the histogram flattened digit-major, counters[digit * n_blocks + tile],
      and its exclusive scan by a composed `scan_new(scan=...)` (torch);
-  3. dest = base[digit * n_blocks + tile] + rank, a permutation (torch);
+  3. dest = base[bucket] + rank, a permutation (torch);
   4. placement of every column at dest.
 
 Options: `radix=` bins per pass (a power of 2 in [2, 256], default 16),
@@ -43,18 +44,6 @@ from cl_ops_tpu_torch.utils.bits import is_po2, log2_floor
 KERNEL_NAMES = ("rank_hist", "counters_scan", "scatter")
 
 
-def radix_digits(limb: torch.Tensor, shift: int, bits: int) -> torch.Tensor:
-    """Digit `bits` wide at `shift` of the limb's unsigned bits,
-    limb ^ 0x80000000, from int32 arithmetic: the arithmetic shift's sign
-    copies fall outside the mask, and the flipped sign bit is the digit's
-    top bit in the limb's last digit."""
-    d = limb >> shift if shift else limb
-    d = d & (((1 << bits) - 1) & ((1 << (32 - shift)) - 1))
-    if shift + bits >= 32:
-        d = d ^ (1 << (31 - shift))
-    return d
-
-
 def pass_shifts(radix: int) -> list[int]:
     bits = log2_floor(radix)
     return list(range(0, 32, bits))
@@ -62,27 +51,21 @@ def pass_shifts(radix: int) -> list[int]:
 
 def satradix_traffic_bytes(n: int, n_limbs: int, has_payload: bool,
                            radix: int = 16) -> int:
-    """Device-memory bytes of the port's passes over n rows: per pass, the
-    digits (a shift, a mask, and a flip in a limb's last pass: each reads 4
-    and writes 4 bytes a row), rank_hist (read 4, write 4), the scan index
-    (read 8, write 4), the base gather (read 4, write 4), the rank add
-    (read 8, write 4), the int64 dest (read 4, write 8) and, per column,
-    the scatter (read the 8-byte dest and 4 bytes, write 4). The histogram
-    and its scan, n / block_elems * radix entries, are left out."""
+    """Device-memory bytes of the port's passes over n rows: per pass,
+    rank_hist_limb (read the 4-byte limb, write the rank and the bucket),
+    the base gather (read 4, write 4), the rank add (read 8, write 4), the
+    int64 dest (read 4, write 8) and, per column, the scatter (read the
+    8-byte dest and 4 bytes, write 4). The histogram and its scan,
+    n / block_elems * radix entries, are left out."""
     cols = n_limbs + int(has_payload)
-    shifts = pass_shifts(radix)
-    digit_ops = sum(int(s > 0) + 1 + int(s + log2_floor(radix) >= 32)
-                    for s in shifts)
-    per_limb = (8 * digit_ops + len(shifts) * (8 + 12 + 8 + 12 + 12
-                                               + 16 * cols)) * n
-    return n_limbs * per_limb
+    per_pass = 12 + 8 + 12 + 12 + 16 * cols
+    return n_limbs * len(pass_shifts(radix)) * per_pass * n
 
 
 def _make_satradix(spec, options):
     radix = int(options.get("radix", 16))
     if not is_po2(radix) or not 2 <= radix <= rk.MAX_RADIX:
         raise BadArgsError("radix must be a power of 2 in [2, 256]")
-    bits = log2_floor(radix)
     block = int(options.get("block_elems", rk.BLOCK_ELEMS))
     rk.check_block_elems(block)
     scatter = options.get("scatter", "xla")
@@ -93,12 +76,11 @@ def _make_satradix(spec, options):
     scanner = scan_new(options.get("scan", "xla"), scan_opts or None,
                        elem_dtype="int", sum_dtype="int")
 
-    def radix_pass(cols, digits, tile):
-        rank, hist = rk.rank_hist(digits, radix, block)
-        n_blocks = hist.shape[0]
+    def radix_pass(cols, limb, shift):
+        rank, bucket, hist = rk.rank_hist_limb(limb, shift, radix, block)
         # counters[digit * n_blocks + tile], then their exclusive scan
         base = scanner.scan_with_device_data(hist.t().reshape(-1))
-        dest = base.index_select(0, torch.add(tile, digits, alpha=n_blocks))
+        dest = base.index_select(0, bucket)
         dest += rank
         if scatter == "bitonic":
             return psort.sort_i32_cols((dest, *cols), num_keys=1,
@@ -110,14 +92,10 @@ def _make_satradix(spec, options):
         cols = list(limbs) + ([payload] if payload is not None else [])
         n = cols[0].numel()
         if n:
-            tile = torch.div(torch.arange(n, dtype=torch.int32,
-                                          device=cols[0].device),
-                             block, rounding_mode="floor")
             # LSD: the least significant limb first (limbs are MSB first)
             for li in reversed(range(len(limbs))):
                 for shift in pass_shifts(radix):
-                    cols = radix_pass(cols, radix_digits(cols[li], shift,
-                                                         bits), tile)
+                    cols = radix_pass(cols, cols[li], shift)
         return (tuple(cols[:len(limbs)]),
                 cols[len(limbs)] if payload is not None else None)
     return fn
@@ -127,8 +105,7 @@ def _smem_usage(kernel: str, numel: int, options: dict, n_arrays: int) -> int:
     """Dynamic shared memory per block of one pass's kernel, in bytes."""
     if kernel != "rank_hist":
         return 0
-    return rk.smem_bytes(int(options.get("radix", 16)),
-                         int(options.get("block_elems", rk.BLOCK_ELEMS)))
+    return rk.smem_bytes(int(options.get("radix", 16)))
 
 
 sort_impls.register("satradix")(lambda: SortImplDef(

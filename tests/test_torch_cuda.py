@@ -13,11 +13,16 @@ its end, probes below every window row, equal high limbs, ragged probe
 blocks, runs of equal probes across chunk edges, an unsorted chunk among
 sorted ones); the
 block scans at lengths 0, 1 and ragged tails; rank_hist with short tiles,
-radix 4-256 and digits outside the bins; pair_cross at distances 1-32;
+radix 4-256 and digits outside the bins; rank_hist_limb at every shift of
+radix 4-256 and tiles of 512-16384 rows, and satradix's one launch of it
+a pass; pair_cross at distances 1-32;
 whole_sort up to its capacity and past it; the five sorters against numpy,
 and autotune with its cache in a temporary file; dense_agg at 1 to 1024
 groups with masks, u32 flips, float32 limbs and more reductions than one
-launch takes; chunk_copy with 1, 3 and 9 arrays, a partial last chunk and
+launch takes, with 64, 23 and one copy of the table a block, operands
+that start one element into their tensors, fewer rows than a vector, and
+one column feeding count, sum, min and max;
+chunk_copy with 1, 3 and 9 arrays, a partial last chunk and
 whole-sentinel slots; the dense GROUP BY, window functions, top-k and
 DISTINCT on the card against their CPU results. Every CUDA call checks that
 the kernel's launch counter moved, so no CUDA tensor reaches a plain
@@ -34,6 +39,7 @@ import torch_band_cases as band_cases
 
 from cl_ops_tpu_torch import interop
 from cl_ops_tpu_torch.ops.exec import bandprobe as bp
+from cl_ops_tpu_torch.ops.exec import dense_agg as da
 from cl_ops_tpu_torch.ops.exec import filter_compact, group_aggregate_cols
 from cl_ops_tpu_torch.ops.scan import kernels as sk
 from cl_ops_tpu_torch.ops.scan import scan_1d
@@ -643,6 +649,48 @@ def test_rank_hist_matches_plain(cuda, radix, n, block):
     assert torch.equal(hist.cpu(), want_hist)
 
 
+@pytest.mark.parametrize("radix", [4, 16, 256])
+@pytest.mark.parametrize("block", [512, 1024, 8192, 1 << 14])
+def test_rank_hist_limb_matches_plain(cuda, radix, block):
+    """Every shift of the radix, the limb's last digit with its flipped
+    sign bit included, over three tiles and a short one; the second half
+    of the limbs takes 5 values, so many lanes of a round share a digit."""
+    from cl_ops_tpu_torch.ops.sort import satradix as sr
+    rng = np.random.default_rng(radix + block)
+    n = 3 * block + 77
+    h = rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+    h[n // 2:] = h[:5][rng.integers(0, 5, n - n // 2)]
+    h[:4] = (-2 ** 31, -1, 0, 2 ** 31 - 1)
+    limb = torch.from_numpy(h)
+    on = limb.to(cuda)
+    shifts = sr.pass_shifts(radix)
+    rk.reset_launches()
+    for shift in shifts:
+        got = rk.rank_hist_limb(on, shift, radix, block)
+        want = rk.rank_hist_limb_plain(limb, shift, radix, block)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert rk.launches == {"rank_hist": len(shifts),
+                           "rank_hist_limb": len(shifts)}
+
+
+def test_satradix_pass_is_one_rank_hist_limb_launch(cuda, monkeypatch):
+    """On the card each of the 16 passes of a 64-bit key at radix 16 is one
+    rank_hist_limb launch: no digit-entry rank_hist and no radix_digits."""
+    def no_digits(*args):
+        raise AssertionError("radix_digits on the card")
+    monkeypatch.setattr(rk, "radix_digits", no_digits)
+    x = np.random.default_rng(7).integers(0, 2 ** 64, 70_000,
+                                          dtype=np.uint64)
+    s = sort_new("satradix", elem_dtype="ulong")
+    rk.reset_launches()
+    k, v = s.sort_with_host_data(x, np.arange(x.size, dtype=np.int32))
+    np.testing.assert_array_equal(k, np.sort(x))
+    np.testing.assert_array_equal(v, np.argsort(x, kind="stable"))
+    assert rk.launches == {"rank_hist": 16, "rank_hist_limb": 16}
+
+
 @pytest.mark.parametrize("j", [1, 2, 16, 32])
 @pytest.mark.parametrize("n_cols,num_keys,hi", [(1, 1, 2 ** 31), (3, 2, 4)])
 def test_pair_cross_small_distances(cuda, j, n_cols, num_keys, hi):
@@ -829,6 +877,68 @@ def test_dense_agg_all_masked_and_empty(cuda, n):
     want = da.dense_agg_plain(gid, torch.zeros(n, dtype=torch.bool), reds, 4)
     assert torch.equal(got.cpu(), want)
     assert (want[0] == 0).all()
+
+
+def _dense_run(gid, mask, reds, num_groups, dev):
+    """dense_agg on the card (operands sliced on the card as on the host:
+    a copy would realign them) against its plain version."""
+    def on(t):
+        if t is None:
+            return None
+        base = t._base if t._base is not None else t
+        return base.to(dev)[t.storage_offset():t.storage_offset() + t.numel()]
+    da.reset_launches()
+    got = da.dense_agg(on(gid), on(mask), [(on(c), k, f) for c, k, f in reds],
+                       num_groups)
+    torch.cuda.synchronize()
+    assert da.launches["dense_agg"] == 1
+    assert torch.equal(got.cpu(), da.dense_agg_plain(gid, mask, reds,
+                                                     num_groups))
+
+
+@pytest.mark.parametrize("num_groups", [1, 4, 65, 1024])
+@pytest.mark.parametrize("form", ["one column", "unaligned",
+                                  "unaligned columns"])
+def test_dense_agg_layouts_match_plain(cuda, num_groups, form):
+    """Tables of 8 reductions in 64 copies a block (1 and 4 groups, each
+    lane of a warp in its own copy), 23 copies (65 groups: lanes share
+    copies) and one (1024); one column feeding count, sum, min and max
+    (plain and flipped); every operand one element into its tensor (vector
+    rows after a 3-row head); only the value columns one element in (rows
+    one at a time)."""
+    rng = np.random.default_rng(num_groups + len(form))
+    n = 300_007
+
+    def col(lo=-2 ** 31, hi=2 ** 31):
+        return torch.from_numpy(rng.integers(lo, hi, n + 1).astype(np.int32))
+    off = 1 if form == "unaligned" else 0
+    gid = col(-3, num_groups + 3)[off:off + n]
+    mask = torch.from_numpy(rng.random(n + 1) < 0.6)[off:off + n]
+    off = 1 if form.startswith("unaligned") else 0
+    cols = [col()[off:off + n] for _ in range(3)]
+    if form == "one column":
+        x = cols[0]
+        reds = [(None, "count", False), (x, "sum", False), (x, "min", False),
+                (x, "max", False), (x, "min", True), (x, "max", True)]
+    else:
+        reds = _dense_reductions(cols)
+    _dense_run(gid, mask, reds, num_groups, cuda)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 7])
+@pytest.mark.parametrize("num_groups", [4, 200])
+@pytest.mark.parametrize("off", [0, 1])
+def test_dense_agg_short_columns(cuda, n, num_groups, off):
+    """Fewer rows than a vector, or one vector and a tail, at an aligned
+    start and one element in."""
+    rng = np.random.default_rng(n + num_groups + off)
+    gid = torch.from_numpy(rng.integers(0, num_groups, n + 1)
+                           .astype(np.int32))[off:off + n]
+    mask = torch.from_numpy(rng.random(n + 1) < 0.7)[off:off + n]
+    cols = [torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n + 1)
+                             .astype(np.int32))[off:off + n]
+            for _ in range(3)]
+    _dense_run(gid, mask, _dense_reductions(cols), num_groups, cuda)
 
 
 @pytest.mark.parametrize("n_arrays", [1, 3, 9])

@@ -95,6 +95,53 @@ def test_rank_hist_matches_numpy(radix, block):
     assert rk.launches["rank_hist"] == 0  # CPU tensors take the plain version
 
 
+def _numpy_limb_digits(limb, shift, radix):
+    """The digit at `shift` of the limb's unsigned bits, limb ^ 2^31."""
+    u = limb.view(np.uint32) ^ np.uint32(0x80000000)
+    return ((u >> np.uint32(shift)) & np.uint32(radix - 1)).astype(np.int32)
+
+
+@pytest.mark.parametrize("radix", [2, 16, 256])
+def test_rank_hist_limb_matches_numpy(radix):
+    """The wrapper on CPU tensors (the plain version) at every shift of the
+    radix, the limb's last digit with its flipped sign bit included: rank
+    and histogram of the limb's digit, and bucket = digit * n_blocks +
+    tile."""
+    block = 512
+    limb = np.random.default_rng(radix).integers(
+        -2 ** 31, 2 ** 31, 3 * block + 77).astype(np.int32)
+    limb[:4] = (-2 ** 31, -1, 0, 2 ** 31 - 1)
+    tile = np.arange(limb.size) // block
+    rk.reset_launches()
+    for shift in tsr.pass_shifts(radix):
+        digits = _numpy_limb_digits(limb, shift, radix)
+        rank, bucket, hist = rk.rank_hist_limb(torch.from_numpy(limb), shift,
+                                               radix, block)
+        want_rank, want_hist = _numpy_rank_hist(digits, radix, block)
+        np.testing.assert_array_equal(rank.numpy(), want_rank)
+        np.testing.assert_array_equal(hist.numpy(), want_hist)
+        np.testing.assert_array_equal(bucket.numpy(),
+                                      digits * hist.shape[0] + tile)
+    assert rk.launches == {"rank_hist": 0, "rank_hist_limb": 0}
+
+
+@pytest.mark.parametrize("radix", [2, 16])
+def test_rank_hist_limb_matches_pallas(radix):
+    """At the limb's last digit, where the sign bit flips, the plain
+    version's rank and histogram equal JAX's pass 1-2 on the same digits.
+    (JAX compiles its kernel for minutes at radix 256, which is held to
+    numpy above.)"""
+    limb = np.random.default_rng(radix + 1).integers(
+        -2 ** 31, 2 ** 31, 2 * BLOCK + 452).astype(np.int32)
+    shift = tsr.pass_shifts(radix)[-1]
+    rank, _, hist = rk.rank_hist_limb_plain(torch.from_numpy(limb), shift,
+                                            radix, BLOCK)
+    want_rank, want_hist = _jax_rank_hist(
+        _numpy_limb_digits(limb, shift, radix), radix)
+    np.testing.assert_array_equal(rank.numpy(), want_rank)
+    np.testing.assert_array_equal(hist.numpy(), want_hist)
+
+
 def test_rank_hist_argument_checks():
     d = torch.zeros(1024, dtype=torch.int32)
     for bad in (dict(radix=3), dict(radix=512), dict(block_elems=1000),
@@ -102,6 +149,11 @@ def test_rank_hist_argument_checks():
         kw = dict(radix=16, block_elems=1024) | bad
         with pytest.raises(BadArgsError):
             rk.rank_hist(d, **kw)
+        with pytest.raises(BadArgsError):
+            rk.rank_hist_limb(d, 0, **kw)
+    for shift in (-1, 32):
+        with pytest.raises(BadArgsError):
+            rk.rank_hist_limb(d, shift, 16)
     with pytest.raises(BadArgsError):
         rk.rank_hist(d.to(torch.int64), 16)
     rank, hist = rk.rank_hist(torch.zeros(0, dtype=torch.int32), 16)
@@ -176,17 +228,16 @@ def test_satradix_digits_and_traffic_model():
     for radix in (2, 8, 16, 256):
         bits = radix.bit_length() - 1
         for shift in tsr.pass_shifts(radix):
-            got = tsr.radix_digits(limb, shift, bits).numpy()
+            got = rk.radix_digits(limb, shift, bits).numpy()
             np.testing.assert_array_equal(got, (u >> shift) & (radix - 1))
-    # a 32-bit key at radix 16: 8 passes; 16 digit ops of 8 bytes a row
-    # (1 + 6 * 2 + 3), and per pass 52 glue bytes and 16 per column
-    assert tsr.satradix_traffic_bytes(1, 1, False, 16) == \
-        8 * 16 + 8 * (52 + 16)
+    # a 32-bit key at radix 16: 8 passes of 44 bytes a row (rank_hist_limb
+    # 12, then the gather, the add and the int64 dest) and 16 per column
+    assert tsr.satradix_traffic_bytes(1, 1, False, 16) == 8 * (44 + 16)
     assert tsr.satradix_traffic_bytes(10, 2, True, 16) == \
-        2 * 10 * (8 * 16 + 8 * (52 + 3 * 16))
+        2 * 10 * 8 * (44 + 3 * 16)
     s = tsort.sort_new("satradix", "radix=256")
     assert not s.in_place
     assert [s.kernel_name(i) for i in range(s.num_kernels)] == [
         "rank_hist", "counters_scan", "scatter"]
-    assert s.smem_usage("rank_hist", 1 << 20) == 16 * 256 * 4 + 8192 * 6
+    assert s.smem_usage("rank_hist", 1 << 20) == 16 * 256 * 4
     assert s.smem_usage("scatter", 1 << 20) == 0
