@@ -114,7 +114,7 @@ DEVICE_KERNEL = {
     "block_sort": "block_sort_kernel", "multi_stage": "block_sort_kernel",
     "pair_cross": "pair_cross_kernel", "block_merge": "block_merge_kernel",
     "whole_sort": "whole_sort_kernel", "scan_carry": "carry_tiles",
-    "scan_carry_wide": "carry_tiles", "seg_scan_carry": "scan_tiles",
+    "scan_carry_wide": "carry_tiles", "seg_scan_carry": "seg_tiles",
     "scan_block": "scan_block_tiles", "scan_block_wide": "scan_block_tiles",
     "probe_band": "probe_band_kernel", "rank_hist": "rank_hist_kernel",
     "rank_hist_limb": "rank_hist_kernel", "dense_agg": "dense_agg_kernel",
@@ -150,7 +150,7 @@ PROFILED_MS = dict.fromkeys(sorted(set(DEVICE_KERNEL.values())), 0.0)
 
 KERNEL_GROUPS = (("bitonic", ("block_sort", "multi_stage", "pair_cross",
                               "block_merge", "whole_sort")),
-                 ("scan", ("scan_tiles", "carry_tiles", "scan_block_tiles")),
+                 ("scan", ("seg_tiles", "carry_tiles", "scan_block_tiles")),
                  ("join", ("probe_band",)),
                  ("radix", ("rank_hist",)),
                  ("dense", ("dense_agg",)),
@@ -229,10 +229,11 @@ def max_abs_err(got, want):
                if g.numel() else 0 for g, w in zip(got, want))
 
 
-def scan_record(name, n, kern, plain, library, nbytes, shape, tol=None):
+def scan_record(name, n, kern, plain, library, nbytes, shape, tol=None,
+                **extra):
     """Run a scan kernel and plain version on the same inputs, compare (exact,
     or within tol(got, want) elementwise), time both and the library
-    call; returns the kernel's record."""
+    call; returns the kernel's record (with `extra`'s keys)."""
     import torch
     got, want = kern(), plain()
     torch.cuda.synchronize()
@@ -253,7 +254,8 @@ def scan_record(name, n, kern, plain, library, nbytes, shape, tol=None):
     return kernel_record(name, "cl_ops_tpu_torch/csrc/scan.cu", err,
                          kernel_ms(name, kern, 7), cuda_ms(plain, 3), nbytes,
                          n,
-                         cuda_ms(library, 7) if library else None, shape)
+                         cuda_ms(library, 7) if library else None, shape,
+                         **extra)
 
 
 def band_record(shape, build, vals, probes, block, windowed):
@@ -1507,7 +1509,20 @@ def main() -> int:
                         v, flags, op, False), None, 12 * SCAN_N,
                     f"n={SCAN_N} {dt} {op} runs~{SCAN_N // 256}",
                     f32_sum_tol if (dt, op) == ("float32", "add") else None)
-        del vals, flags
+        # for scale only: torch.cummax is an unsegmented running max
+        xi = vals["int32"]
+        scan_recs["seg_scan_carry max int32"]["cummax_ms"] = cuda_ms(
+            lambda: torch.cummax(xi, 0), 7)
+        # the look-back's extremes: no flag (every tile walks back to a
+        # PREFIX) and every row flagged (every tile publishes at once)
+        for tag, fl in (("no flags", torch.zeros_like(flags)),
+                        ("every row flagged", torch.ones_like(flags))):
+            scan_recs[f"seg_scan_carry max int32 {tag}"] = scan_record(
+                "seg_scan_carry", SCAN_N,
+                lambda fl=fl: seg.seg_scan_carry(xi, fl, "max"),
+                lambda fl=fl: seg.seg_scan_carry_plain(xi, fl, "max", False),
+                None, 12 * SCAN_N, f"n={SCAN_N} int32 max, {tag}")
+        del vals, flags, xi
         scan_recs.update(block_scan_records(dev, BLOCK_SCAN_N))
         for r in scan_recs.values():
             print("kernel", json.dumps(r))

@@ -120,3 +120,9 @@ def signed_equivalent(dt: DTypeLike) -> torch.dtype:
     """Signed integer dtype of the same width, for `.view()` bit work."""
     return {1: torch.int8, 2: torch.int16, 4: torch.int32,
             8: torch.int64}[type_sizeof(dt)]
+
+
+def unsigned_equivalent(dt: DTypeLike) -> torch.dtype:
+    """Unsigned integer dtype of the same width (for radix key bit tricks)."""
+    return {1: torch.uint8, 2: torch.uint16, 4: torch.uint32,
+            8: torch.uint64}[type_sizeof(dt)]

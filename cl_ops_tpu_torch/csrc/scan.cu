@@ -13,28 +13,30 @@
 // so every tile before it has already started and a block that waits on a
 // predecessor can never wait on one that is not running.
 //
-// Two designs of it live here:
+// Both kernels share one design:
 //
-//   * seg_scan_carry (scan_tiles, below): 4096-element tiles, warp-striped
-//     4-byte loads, a (value, flag) pair scan per item, and a status split
-//     in separate words: a value is written before its flag with a
-//     __threadfence() between them, and read after its flag with a
-//     __threadfence() between them. The pair operator
-//       (v1, f1) (x) (v2, f2) = (f2 ? v2 : v1 (+) v2,  f1 | f2)
-//     is associative; a PREFIX status enters the look-back as a pair with
-//     the flag set, and a segment flag inside a window of predecessors ends
-//     the look-back too.
-//   * scan_carry (carry_tiles, further down): the plain sum, redesigned for
-//     this card: 64 KB tiles of 16-byte loads, a scan within each thread's
-//     contiguous items, and a status word that packs flag and value, so
-//     that one load reads a predecessor's state and no fence is needed.
+//   * 16-byte loads of whole tiles (64 KB for scan_carry, 32 KB of values
+//     and 32 KB of flags for seg_scan_carry) through a swizzled
+//     shared-memory transpose, so that each thread scans its own
+//     contiguous items serially and only the thread and warp totals take
+//     shuffles;
+//   * one status word per tile (two for 64-bit sums) that packs the state
+//     and the value, so that one load reads a predecessor and no fence is
+//     needed;
+//   * a look-back over 128 predecessors a round trip with __nanosleep
+//     backoff, and a status buffer that each call's last block clears for
+//     the next call on the stream.
+//
+// The segmented scan runs the pair operator
+//   (v1, f1) (x) (v2, f2) = (f2 ? v2 : v1 (+) v2,  f1 | f2),
+// which is associative; a tile that holds a segment flag knows its
+// inclusive prefix (its value since its last flag) before it looks back.
 //
 // Bound: each input element is read once and each output written once:
 // 8n bytes for the 32-bit sum, 16n for the 64-bit sum, and 12n for the
 // segmented scan of 4-byte values with int32 flags. The status words add
-// 24 bytes per 4096-element tile (segmented; the caller zeroes them for
-// each call) or 8 per 16384 (32-bit sum) / 16 per 8192 (64-bit sum; zeroed
-// once, and cleared by each call's last block for the next call).
+// 8 bytes per tile (16 per 8192-element tile of 64-bit sums), zeroed once
+// and cleared by each call's last block.
 //
 // Integer sums are taken in uint32_t/uint64_t, where wrapping is defined.
 // f32 min/max propagate NaN, as torch.minimum/maximum do; +0 and -0 compare
@@ -55,47 +57,21 @@
 
 enum { ST_NONE = 0, ST_AGG = 1, ST_PREFIX = 2 };
 
-template <class V>
-struct Status {
-  unsigned* ticket;
-  unsigned* flag;   // per tile: ST_NONE, ST_AGG or ST_PREFIX
-  unsigned* agg_f;  // per tile: any segment flag in the tile
-  V* agg_v;         // per tile: value since the tile's last flag
-  V* pre_v;         // per tile: inclusive prefix through the tile's end
-};
-
-// Byte layout of the status buffer: ticket, flag[], agg_f[], agg_v[], pre_v[].
 static long long n_tiles_of(long long n) { return (n + TILE - 1) / TILE; }
 
-static long long status_bytes(long long n, int value_bytes) {
-  long long t = n_tiles_of(n);
-  long long off = 16 + 8 * t;  // ticket (padded), flag[], agg_f[]
-  off = (off + 15) & ~15LL;
-  return off + 2LL * value_bytes * t;
-}
-
-template <class V>
-static Status<V> make_status(void* base, long long n) {
-  long long t = n_tiles_of(n);
-  char* p = static_cast<char*>(base);
-  Status<V> s;
-  s.ticket = reinterpret_cast<unsigned*>(p);
-  s.flag = reinterpret_cast<unsigned*>(p + 16);
-  s.agg_f = s.flag + t;
-  long long off = ((16 + 8 * t) + 15) & ~15LL;
-  s.agg_v = reinterpret_cast<V*>(p + off);
-  s.pre_v = s.agg_v + t;
-  return s;
-}
-
-template <class T>
-__device__ __forceinline__ T load_vol(const T* p) {
-  return *reinterpret_cast<const volatile T*>(p);
-}
-
-template <class T>
-__device__ __forceinline__ void store_vol(T* p, T v) {
-  *reinterpret_cast<volatile T*>(p) = v;
+// Lets `kernel` take `bytes` of dynamic shared memory, once per device
+// (`mu` and `set_on` belong to the caller, one pair per kernel).
+static int allow_smem(const void* kernel, int bytes, std::mutex& mu,
+                      bool* set_on) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (dev < 64 && set_on[dev]) return 0;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (!err && dev < 64) set_on[dev] = true;
+  return err;
 }
 
 // --- operators ---------------------------------------------------------------
@@ -159,185 +135,61 @@ __device__ __forceinline__ Pair<V> comb(Pair<V> a, Pair<V> b) {
 }
 
 template <class Op, class V>
-__device__ __forceinline__ Pair<V> ident(unsigned f = 0u) {
+__device__ __forceinline__ Pair<V> ident() {
   Pair<V> r;
   r.v = Op::template id<V>();
-  r.f = f;
+  r.f = 0u;
   return r;
 }
 
-// --- look-back ---------------------------------------------------------------
-
-// Run by all 32 lanes of warp 0. Publishes the tile's aggregate, combines
-// its predecessors' statuses, publishes its inclusive prefix, and returns
-// the exclusive prefix of the tile (the combine of every element before it).
-template <class Op, class V>
-__device__ Pair<V> look_back(const Status<V>& st, long long tile, Pair<V> agg,
-                             int lane) {
-  if (tile == 0) {
-    if (lane == 0) {
-      store_vol(&st.pre_v[0], agg.v);
-      __threadfence();
-      store_vol(&st.flag[0], (unsigned)ST_PREFIX);
-    }
-    return ident<Op, V>();
-  }
-  if (lane == 0) {
-    store_vol(&st.agg_v[tile], agg.v);
-    store_vol(&st.agg_f[tile], agg.f);
-    __threadfence();
-    store_vol(&st.flag[tile], (unsigned)ST_AGG);
-  }
-  Pair<V> acc = ident<Op, V>();  // combine of tiles (w, tile), the later part
-  long long w = tile - 1;
-  while (true) {
-    long long j = w - lane;  // lane 0 is the nearest predecessor
-    Pair<V> e = ident<Op, V>(1u);  // before tile 0: nothing, and stop
-    if (j >= 0) {
-      unsigned s;
-      do {
-        s = load_vol(&st.flag[j]);
-      } while (s == ST_NONE);
-      __threadfence();
-      if (s == ST_PREFIX) {
-        e.v = load_vol(&st.pre_v[j]);
-        e.f = 1u;
-      } else {
-        e.v = load_vol(&st.agg_v[j]);
-        e.f = load_vol(&st.agg_f[j]);
-      }
-    }
-    // Ordered reduction over the window: lane + d is earlier than lane.
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      Pair<V> o;
-      o.v = __shfl_down_sync(FULL, e.v, d);
-      o.f = __shfl_down_sync(FULL, e.f, d);
-      if (lane + d < 32) e = comb<Op>(o, e);
-    }
-    Pair<V> win;
-    win.v = __shfl_sync(FULL, e.v, 0);
-    win.f = __shfl_sync(FULL, e.f, 0);
-    acc = comb<Op>(win, acc);
-    if (acc.f) break;  // a prefix or a segment start: nothing earlier counts
-    w -= 32;
-  }
-  if (lane == 0) {
-    store_vol(&st.pre_v[tile], comb<Op>(acc, agg).v);
-    __threadfence();
-    store_vol(&st.flag[tile], (unsigned)ST_PREFIX);
-  }
-  return acc;
+template <class V>
+__device__ __forceinline__ Pair<V> shfl_up(Pair<V> p, int d) {
+  Pair<V> r;
+  r.v = __shfl_up_sync(FULL, p.v, d);
+  r.f = __shfl_up_sync(FULL, p.f, d);
+  return r;
 }
 
-// --- the tile kernel -----------------------------------------------------------
-
-template <class V, class Op, bool SEG>
-__global__ void __launch_bounds__(THREADS)
-    scan_tiles(const V* __restrict__ x, const int32_t* __restrict__ flags,
-               V* __restrict__ out, long long n, int exclusive, Status<V> st) {
-  __shared__ unsigned s_tile;
-  __shared__ V s_wv[WARPS];
-  __shared__ unsigned s_wf[WARPS];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) s_tile = atomicAdd(st.ticket, 1u);
-  __syncthreads();
-  const long long base = (long long)s_tile * TILE + (long long)warp * WARP_ELEMS;
-
-  V xv[ITEMS];
-  Pair<V> p[ITEMS];
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    long long i = base + k * 32 + lane;
-    bool in = i < n;
-    xv[k] = in ? x[i] : Op::template id<V>();
-    p[k].v = xv[k];
-    p[k].f = (SEG && in) ? (flags[i] != 0) : 0u;
-  }
-
-  // Inclusive scan of the warp's WARP_ELEMS elements, in index order.
-  Pair<V> run = ident<Op, V>();
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    Pair<V> q = p[k];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      Pair<V> o;
-      o.v = __shfl_up_sync(FULL, q.v, d);
-      o.f = SEG ? __shfl_up_sync(FULL, q.f, d) : 0u;
-      if (lane >= d) q = comb<Op>(o, q);
-    }
-    q = comb<Op>(run, q);
-    p[k] = q;
-    run.v = __shfl_sync(FULL, q.v, 31);
-    run.f = SEG ? __shfl_sync(FULL, q.f, 31) : 0u;
-  }
-  if (lane == 0) {
-    s_wv[warp] = run.v;
-    s_wf[warp] = run.f;
-  }
-  __syncthreads();
-
-  if (warp == 0) {
-    Pair<V> w = ident<Op, V>();
-    if (lane < WARPS) {
-      w.v = s_wv[lane];
-      w.f = s_wf[lane];
-    }
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      Pair<V> o;
-      o.v = __shfl_up_sync(FULL, w.v, d);
-      o.f = __shfl_up_sync(FULL, w.f, d);
-      if (lane >= d) w = comb<Op>(o, w);
-    }
-    Pair<V> agg;
-    agg.v = __shfl_sync(FULL, w.v, WARPS - 1);
-    agg.f = __shfl_sync(FULL, w.f, WARPS - 1);
-    Pair<V> ex;
-    ex.v = __shfl_up_sync(FULL, w.v, 1);
-    ex.f = __shfl_up_sync(FULL, w.f, 1);
-    if (lane == 0) ex = ident<Op, V>();
-    Pair<V> pre = look_back<Op>(st, (long long)s_tile, agg, lane);
-    if (lane < WARPS) {
-      Pair<V> c = comb<Op>(pre, ex);
-      s_wv[lane] = c.v;
-      s_wf[lane] = c.f;
-    }
-  }
-  __syncthreads();
-
-  Pair<V> wp;
-  wp.v = s_wv[warp];
-  wp.f = s_wf[warp];
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    long long i = base + k * 32 + lane;
-    if (i < n) {
-      V r = comb<Op>(wp, p[k]).v;
-      if (Op::is_add && exclusive) r = r - xv[k];
-      out[i] = r;
-    }
-  }
+template <class V>
+__device__ __forceinline__ Pair<V> shfl(Pair<V> p, int lane) {
+  Pair<V> r;
+  r.v = __shfl_sync(FULL, p.v, lane);
+  r.f = __shfl_sync(FULL, p.f, lane);
+  return r;
 }
 
-// --- scan_carry: the plain sum, redesigned for Hopper ------------------------
+// A 4-byte value's bits and back (the low half of a status word).
+__device__ __forceinline__ unsigned to_bits(unsigned v) { return v; }
+__device__ __forceinline__ unsigned to_bits(int32_t v) { return (unsigned)v; }
+__device__ __forceinline__ unsigned to_bits(float v) {
+  return __float_as_uint(v);
+}
+template <class V> __device__ __forceinline__ V from_bits(unsigned b);
+template <> __device__ __forceinline__ unsigned from_bits<unsigned>(unsigned b) {
+  return b;
+}
+template <> __device__ __forceinline__ int32_t from_bits<int32_t>(unsigned b) {
+  return (int32_t)b;
+}
+template <> __device__ __forceinline__ float from_bits<float>(unsigned b) {
+  return __uint_as_float(b);
+}
+
+// --- scan_carry: the plain sum -------------------------------------------------
 //
 // A tile is C_THREADS threads x C_VEC 16-byte vectors: 64 KB, so 16384
-// 32-bit or 8192 64-bit elements (a 256M-element 32-bit scan walks 16384
-// tiles, a quarter of scan_tiles' count). Each warp loads its 4 KB with
-// uint4 loads, lane j taking vector k * 32 + j (each instruction reads 512
-// contiguous bytes), into shared memory, and reads it back blocked: thread
-// `lane` takes vectors lane * C_VEC .. + C_VEC - 1, so its items are
-// contiguous. The 16-byte slots are XOR-swizzled (swz) so that both the
-// striped and the blocked accesses are free of bank conflicts. Each thread
-// sums its items, the warp scans the 32 thread totals (5 shuffles), warp 0
-// scans the 16 warp totals, publishes the tile's aggregate, looks back and
-// hands every warp its base; each thread then runs its items once more and
-// the tile leaves the way it came, through shared memory, as uint4 stores.
-// A warp whose 4 KB runs past n, or a call whose pointers are not 16-byte
-// aligned, loads and stores element by element through the same slots.
+// 32-bit or 8192 64-bit elements. Each warp loads its 4 KB with uint4 loads,
+// lane j taking vector k * 32 + j (each instruction reads 512 contiguous
+// bytes), into shared memory, and reads it back blocked: thread `lane`
+// takes vectors lane * C_VEC .. + C_VEC - 1, so its items are contiguous.
+// The 16-byte slots are XOR-swizzled (swz) so that both the striped and the
+// blocked accesses are free of bank conflicts. Each thread sums its items,
+// the warp scans the 32 thread totals (5 shuffles), warp 0 scans the 16
+// warp totals, publishes the tile's aggregate, looks back and hands every
+// warp its base; each thread then runs its items once more and the tile
+// leaves the way it came, through shared memory, as uint4 stores. A warp
+// whose 4 KB runs past n, or a call whose pointers are not 16-byte aligned,
+// loads and stores element by element through the same slots.
 //
 // Status: per tile Carry<V>::WORDS 64-bit words, each the 32-bit flag (NONE,
 // AGG, PREFIX) in its high half and a 32-bit part of the value in its low
@@ -379,8 +231,10 @@ static long long carry_status_bytes(long long n, int value_bytes) {
   return 16 + 2LL * value_bytes * carry_tiles_of(n, value_bytes);
 }
 
-// The physical 16-byte slot of logical slot s in a warp's region of
-// 32 * C_VEC slots.
+// The physical 16-byte slot of logical slot s in a warp's region of 32 x 4
+// or 32 x 8 slots: with 4 or 8 slots a thread, lanes 8q .. 8q + 7 of a
+// striped access (slot k * 32 + lane) or a blocked one (slot lane * vec + k)
+// land in 8 different bank groups.
 __device__ __forceinline__ int swz(int s) { return s ^ ((s >> 3) & 7); }
 
 __device__ __forceinline__ unsigned long long pack_word(unsigned flag,
@@ -475,6 +329,27 @@ __device__ V carry_look_back(unsigned long long* st, long long tile, V agg,
   const V acc = carry_sum_back<V>(st, tile, lane);
   if (lane == 0) publish(st + tile * W, (unsigned)ST_PREFIX, acc + agg);
   return acc;
+}
+
+// Run by every thread of a block after its tile is written: the last block
+// to finish clears `words` status words and the ticket (every other block
+// is past its look-back), so the next call on the stream finds them zeroed.
+__device__ __forceinline__ void clear_status(unsigned* ticket,
+                                             unsigned long long* st,
+                                             long long words) {
+  __shared__ bool s_last;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    s_last = atomicAdd(ticket + 1, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (s_last) {
+    for (long long i = threadIdx.x; i < words; i += blockDim.x) st[i] = 0ull;
+    if (threadIdx.x == 0) {
+      ticket[0] = 0u;
+      ticket[1] = 0u;
+    }
+  }
 }
 
 template <class V>
@@ -575,23 +450,7 @@ __global__ void __launch_bounds__(C_THREADS, 2)
       if (i < n) out[i] = se[swz(e / PV) * PV + e % PV];
     }
   }
-
-  // The last block to finish clears the status (every other block is past
-  // its look-back), so the next call on the stream finds it zeroed.
-  __shared__ bool s_last;
-  if (threadIdx.x == 0) {
-    __threadfence();
-    s_last = atomicAdd(ticket + 1, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (s_last) {
-    const long long words = (long long)gridDim.x * Carry<V>::WORDS;
-    for (long long i = threadIdx.x; i < words; i += blockDim.x) st[i] = 0ull;
-    if (threadIdx.x == 0) {
-      ticket[0] = 0u;
-      ticket[1] = 0u;
-    }
-  }
+  clear_status(ticket, st, (long long)gridDim.x * Carry<V>::WORDS);
 }
 
 template <class V>
@@ -599,28 +458,258 @@ static int launch_carry(const void* x, void* out, long long n, int exclusive,
                         void* status, void* stream) {
   long long tiles = carry_tiles_of(n, (int)sizeof(V));
   if (tiles == 0) return 0;
-  // the shared-memory attribute, set once per device
   static std::mutex mu;
   static bool set_on[64] = {};
-  int dev = 0;
-  int err = (int)cudaGetDevice(&dev);
+  int err = allow_smem((const void*)carry_tiles<V>, C_TILE_BYTES, mu, set_on);
   if (err) return err;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    if (dev >= 64 || !set_on[dev]) {
-      err = (int)cudaFuncSetAttribute(
-          carry_tiles<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          C_TILE_BYTES);
-      if (err) return err;
-      if (dev < 64) set_on[dev] = true;
-    }
-  }
   int aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                 (reinterpret_cast<uintptr_t>(out) % 16 == 0);
   char* p = static_cast<char*>(status);
   carry_tiles<V><<<(unsigned)tiles, C_THREADS, C_TILE_BYTES,
                    (cudaStream_t)stream>>>(
       static_cast<const V*>(x), static_cast<V*>(out), n, exclusive, aligned,
+      reinterpret_cast<unsigned*>(p),
+      reinterpret_cast<unsigned long long*>(p + 16));
+  return (int)cudaGetLastError();
+}
+
+// --- seg_scan_carry: the segmented scan, on scan_carry's design ----------------
+//
+// A tile is S_THREADS threads x SEG_VEC 16-byte vectors of values and as
+// many of flags (S_TILE elements). Both arrays go through swizzled shared
+// memory as carry_tiles' values do, into two regions, so that each thread
+// holds S_ITEMS contiguous values and their flags as one bitmask. Each
+// thread folds its items with the pair operator, the warp scans the 32
+// thread pairs (5 shuffle rounds of value and flag), warp 0 scans the 8
+// warp pairs and looks back, and each thread replays its items once from
+// its base; the tile leaves through shared memory as uint4 stores. A warp
+// past n or a call whose pointers are not all 16-byte aligned goes element
+// by element through the same slots; elements past n enter as the op's
+// identity without a flag.
+//
+// Status: one 64-bit word per tile. High half: the state (NONE, AGG,
+// PREFIX) and ST_FLAG when the tile holds a segment flag; low half: the
+// value's 32 bits (a float's bits for float32). A tile whose aggregate
+// holds a flag publishes PREFIX at once, before its own look-back, since
+// its inclusive prefix is its value since its last flag; at one flag in a
+// few hundred rows nearly every tile does, and its successors stop at it.
+// The look-back (seg_back) reads predecessors as carry_sum_back does and
+// stops at the nearest one that is PREFIX or flagged; every tile nearer
+// than that one is an AGG without a flag, so a window combines with the
+// plain op over the lanes up to the stop. Add and min/max do not depend on
+// the combine's order, except for float32 add (within the callers'
+// tolerance) and the sign of a zero or a NaN's payload for float min/max.
+
+#define SEG_VEC 8   // uint4 of values, and of flags, per thread
+#define SEG_MINB 3  // blocks an SM, for the register budget
+#define S_THREADS 256
+#define S_WARPS (S_THREADS / 32)
+#define S_ITEMS (4 * SEG_VEC)                 // elements per thread
+#define S_TILE (S_THREADS * S_ITEMS)
+#define S_SMEM (2 * S_THREADS * SEG_VEC * 16)  // values, then flags
+#define ST_FLAG 4u  // in a status word's state: the tile holds a flag
+
+static long long seg_tiles_of(long long n) { return (n + S_TILE - 1) / S_TILE; }
+
+// Run by all 32 lanes of one warp: the op over every element of the tiles
+// between `tile` (> 0) and the nearest PREFIX or flagged predecessor, that
+// one included: the value the tile's first segment continues.
+template <class Op, class V>
+__device__ V seg_back(const unsigned long long* st, long long tile, int lane) {
+  V acc = Op::template id<V>();
+  for (long long w = tile - 1;; w -= 32 * C_LOOKAHEAD) {
+    unsigned v[C_LOOKAHEAD], s[C_LOOKAHEAD];
+#pragma unroll
+    for (int u = 0; u < C_LOOKAHEAD; ++u) {
+      const long long j = w - 32 * u - lane;  // lane 0 is the nearest
+      v[u] = 0u;
+      s[u] = ST_PREFIX;  // before tile 0: nothing, and stop
+      if (j >= 0) s[u] = peek(st + j, v[u]);
+    }
+    bool done = false;
+#pragma unroll
+    for (int u = 0; u < C_LOOKAHEAD; ++u) {
+      if (done) continue;  // warp-uniform
+      const long long j = w - 32 * u - lane;
+      for (unsigned ns = 32; __any_sync(FULL, s[u] == ST_NONE);
+           ns = ns < C_SLEEP_MAX ? 2 * ns : ns) {
+        __nanosleep(ns);
+        if (s[u] == ST_NONE) s[u] = peek(st + j, v[u]);
+      }
+      const unsigned end = __ballot_sync(
+          FULL, (s[u] & 3u) == ST_PREFIX || (s[u] & ST_FLAG));
+      const int stop = end ? __ffs(end) - 1 : 31;
+      V part = lane <= stop ? from_bits<V>(v[u]) : Op::template id<V>();
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1)
+        part = Op::f(part, __shfl_xor_sync(FULL, part, d));
+      acc = Op::f(part, acc);  // the window comes before acc
+      done = end != 0;
+    }
+    if (done) return acc;
+  }
+}
+
+// Run by all 32 lanes of warp 0. Publishes the tile's status, looks back,
+// and returns the value the tile's first segment continues (the identity
+// for tile 0).
+template <class Op, class V>
+__device__ V seg_look_back(unsigned long long* st, long long tile, Pair<V> agg,
+                           int lane) {
+  if (tile == 0 || agg.f) {  // its inclusive prefix is its own value
+    if (lane == 0)
+      publish(st + tile, ST_PREFIX | (agg.f ? ST_FLAG : 0u), to_bits(agg.v));
+    return tile == 0 ? Op::template id<V>() : seg_back<Op, V>(st, tile, lane);
+  }
+  if (lane == 0) publish(st + tile, (unsigned)ST_AGG, to_bits(agg.v));
+  const V acc = seg_back<Op, V>(st, tile, lane);
+  if (lane == 0)
+    publish(st + tile, (unsigned)ST_PREFIX, to_bits(Op::f(acc, agg.v)));
+  return acc;
+}
+
+template <class V, class Op>
+__global__ void __launch_bounds__(S_THREADS, SEG_MINB)
+    seg_tiles(const V* __restrict__ x, const int32_t* __restrict__ flags,
+              V* __restrict__ out, long long n, int exclusive, int aligned,
+              unsigned* ticket, unsigned long long* st) {
+  constexpr int WARP_ITEMS = 32 * S_ITEMS;
+  // S_WARPS regions of 32 * SEG_VEC slots of values, then as many of flags
+  extern __shared__ uint4 s_vec[];
+  __shared__ unsigned s_tile;
+  __shared__ V s_wv[S_WARPS];
+  __shared__ unsigned s_wf[S_WARPS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const long long tile = s_tile;
+  const long long wbase = tile * S_TILE + (long long)warp * WARP_ITEMS;
+  uint4* sv = s_vec + warp * (32 * SEG_VEC);
+  uint4* sf = sv + S_WARPS * (32 * SEG_VEC);
+  V* ev = reinterpret_cast<V*>(sv);
+  int32_t* ef = reinterpret_cast<int32_t*>(sf);
+  const bool whole = aligned && wbase + WARP_ITEMS <= n;  // warp-uniform
+
+  if (whole) {
+    const uint4* xs = reinterpret_cast<const uint4*>(x + wbase);
+    const uint4* fs = reinterpret_cast<const uint4*>(flags + wbase);
+#pragma unroll
+    for (int k = 0; k < SEG_VEC; ++k) {
+      const int s = swz(k * 32 + lane);
+      sv[s] = xs[k * 32 + lane];
+      sf[s] = fs[k * 32 + lane];
+    }
+  } else {
+    for (int e = lane; e < WARP_ITEMS; e += 32) {
+      const long long i = wbase + e;
+      const int s = swz(e / 4) * 4 + e % 4;
+      ev[s] = i < n ? x[i] : Op::template id<V>();
+      ef[s] = i < n ? flags[i] : 0;
+    }
+  }
+  __syncwarp();
+  V a[S_ITEMS];
+  unsigned fm = 0u;  // bit i: item i starts a segment
+#pragma unroll
+  for (int k = 0; k < SEG_VEC; ++k) {
+    const int s = swz(lane * SEG_VEC + k);
+    const uint4 q = sv[s];
+    const uint4 g = sf[s];
+    const V* qv = reinterpret_cast<const V*>(&q);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) a[4 * k + m] = qv[m];
+    fm |= ((unsigned)(g.x != 0) | (unsigned)(g.y != 0) << 1 |
+           (unsigned)(g.z != 0) << 2 | (unsigned)(g.w != 0) << 3) << (4 * k);
+  }
+
+  Pair<V> t = ident<Op, V>();  // the thread's items as one pair
+#pragma unroll
+  for (int i = 0; i < S_ITEMS; ++i)
+    t.v = (fm >> i) & 1u ? a[i] : Op::f(t.v, a[i]);
+  t.f = fm != 0u;
+  Pair<V> inc = t;  // inclusive scan of the warp's thread pairs
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Pair<V> o = shfl_up(inc, d);
+    if (lane >= d) inc = comb<Op>(o, inc);
+  }
+  Pair<V> lex = shfl_up(inc, 1);  // the lanes before this one
+  if (lane == 0) lex = ident<Op, V>();
+  if (lane == 31) {
+    s_wv[warp] = inc.v;
+    s_wf[warp] = inc.f;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    Pair<V> w = ident<Op, V>();
+    if (lane < S_WARPS) {
+      w.v = s_wv[lane];
+      w.f = s_wf[lane];
+    }
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Pair<V> o = shfl_up(w, d);
+      if (lane >= d) w = comb<Op>(o, w);
+    }
+    const Pair<V> agg = shfl(w, S_WARPS - 1);
+    Pair<V> ex = shfl_up(w, 1);  // the warps before this one
+    if (lane == 0) ex = ident<Op, V>();
+    const V before = seg_look_back<Op, V>(st, tile, agg, lane);
+    if (lane < S_WARPS) s_wv[lane] = ex.f ? ex.v : Op::f(before, ex.v);
+  }
+  __syncthreads();
+
+  V run = lex.f ? lex.v : Op::f(s_wv[warp], lex.v);  // before a[0]
+#pragma unroll
+  for (int i = 0; i < S_ITEMS; ++i) {
+    const V xi = a[i];
+    run = (fm >> i) & 1u ? xi : Op::f(run, xi);
+    if constexpr (Op::is_add)
+      a[i] = exclusive ? run - xi : run;
+    else
+      a[i] = run;
+  }
+#pragma unroll
+  for (int k = 0; k < SEG_VEC; ++k) {
+    uint4 q;
+    V* qv = reinterpret_cast<V*>(&q);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) qv[m] = a[4 * k + m];
+    sv[swz(lane * SEG_VEC + k)] = q;
+  }
+  __syncwarp();
+  if (whole) {
+    uint4* dst = reinterpret_cast<uint4*>(out + wbase);
+#pragma unroll
+    for (int k = 0; k < SEG_VEC; ++k)
+      dst[k * 32 + lane] = sv[swz(k * 32 + lane)];
+  } else {
+    for (int e = lane; e < WARP_ITEMS; e += 32) {
+      const long long i = wbase + e;
+      if (i < n) out[i] = ev[swz(e / 4) * 4 + e % 4];
+    }
+  }
+  clear_status(ticket, st, (long long)gridDim.x);
+}
+
+template <class V, class Op>
+static int launch_seg(const void* x, const void* flags, void* out, long long n,
+                      int exclusive, void* status, void* stream) {
+  long long tiles = seg_tiles_of(n);
+  if (tiles == 0) return 0;
+  static std::mutex mu;
+  static bool set_on[64] = {};
+  int err = allow_smem((const void*)seg_tiles<V, Op>, S_SMEM, mu, set_on);
+  if (err) return err;
+  int aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                (reinterpret_cast<uintptr_t>(flags) % 16 == 0) &&
+                (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  char* p = static_cast<char*>(status);
+  seg_tiles<V, Op><<<(unsigned)tiles, S_THREADS, S_SMEM,
+                     (cudaStream_t)stream>>>(
+      static_cast<const V*>(x), static_cast<const int32_t*>(flags),
+      static_cast<V*>(out), n, exclusive, aligned,
       reinterpret_cast<unsigned*>(p),
       reinterpret_cast<unsigned long long*>(p + 16));
   return (int)cudaGetLastError();
@@ -633,8 +722,8 @@ static int launch_carry(const void* x, void* out, long long n, int exclusive,
 // there as two u32 limbs, here on native uint64_t). The caller computes
 // every tile's base (the sum of all elements before the tile) in two small
 // passes, so tiles are independent: no ticket and no look-back. A tile of
-// TILE elements is scanned in registers with the same warp-striped loads
-// and two-level shuffle scan as scan_tiles, then base[tile] is added:
+// TILE elements is scanned in registers with warp-striped loads and a
+// two-level shuffle scan, then base[tile] is added:
 // out = (in-tile inclusive sum + base) [- x when exclusive], the JAX
 // kernel's form. Bound: bytes, one read of x and one write of out per
 // element (the caller's block sums read x once more). Inputs narrower than
@@ -717,23 +806,6 @@ static int launch_block(const void* x, const void* base, void* out,
   return (int)cudaGetLastError();
 }
 
-template <class V, class Op, bool SEG>
-static int launch(const void* x, const void* flags, void* out, long long n,
-                  int exclusive, void* status, void* stream) {
-  long long tiles = n_tiles_of(n);
-  if (tiles == 0) return 0;
-  scan_tiles<V, Op, SEG><<<(unsigned)tiles, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const V*>(x), static_cast<const int32_t*>(flags),
-      static_cast<V*>(out), n, exclusive, make_status<V>(status, n));
-  return (int)cudaGetLastError();
-}
-
-// Bytes of the zeroed status buffer a segmented scan of n elements of
-// value_bytes needs.
-extern "C" long long clo_scan_status_bytes(long long n, int value_bytes) {
-  return status_bytes(n, value_bytes);
-}
-
 // Bytes of the status buffer scan_carry of n elements of value_bytes needs
 // (zeroed before its first use; each call leaves it zeroed), and its
 // elements per tile.
@@ -759,8 +831,7 @@ extern "C" int clo_scan_carry(const void* x, void* out, long long n,
   return (int)cudaErrorInvalidValue;
 }
 
-// Elements per tile of seg_scan_carry and scan_block (one base per tile for
-// scan_block).
+// Elements per tile of scan_block (one base per tile).
 extern "C" int clo_scan_tile() { return TILE; }
 
 // scan_block: per-tile inclusive (exclusive != 0: exclusive) scan of n
@@ -780,6 +851,16 @@ extern "C" int clo_scan_block(const void* x, const void* base, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
+// Elements per tile of seg_scan_carry, and the bytes of its status buffer
+// for n elements: the ticket and the count of finished tiles (padded to 16
+// bytes), then one 64-bit word per tile (zeroed before its first use; each
+// call leaves it zeroed).
+extern "C" int clo_seg_scan_tile() { return S_TILE; }
+
+extern "C" long long clo_seg_scan_status_bytes(long long n) {
+  return 16 + 8 * seg_tiles_of(n);
+}
+
 // seg_scan_carry: inclusive segmented scan of n int32 (is_float = 0) or
 // float32 (is_float = 1) values under op 0 add, 1 min, 2 max, restarting at
 // every nonzero int32 flag; exclusive != 0 (add only) gives the exclusive form.
@@ -789,16 +870,16 @@ extern "C" int clo_seg_scan_carry(const void* x, const void* flags, void* out,
   if (op != 0 && exclusive) return (int)cudaErrorInvalidValue;
   if (is_float) {
     switch (op) {
-      case 0: return launch<float, OpAdd, true>(x, flags, out, n, exclusive, status, stream);
-      case 1: return launch<float, OpMin, true>(x, flags, out, n, 0, status, stream);
-      case 2: return launch<float, OpMax, true>(x, flags, out, n, 0, status, stream);
+      case 0: return launch_seg<float, OpAdd>(x, flags, out, n, exclusive, status, stream);
+      case 1: return launch_seg<float, OpMin>(x, flags, out, n, 0, status, stream);
+      case 2: return launch_seg<float, OpMax>(x, flags, out, n, 0, status, stream);
     }
   } else {
     switch (op) {
       // int32 sums wrap: add as uint32_t, same bits
-      case 0: return launch<unsigned, OpAdd, true>(x, flags, out, n, exclusive, status, stream);
-      case 1: return launch<int32_t, OpMin, true>(x, flags, out, n, 0, status, stream);
-      case 2: return launch<int32_t, OpMax, true>(x, flags, out, n, 0, status, stream);
+      case 0: return launch_seg<unsigned, OpAdd>(x, flags, out, n, exclusive, status, stream);
+      case 1: return launch_seg<int32_t, OpMin>(x, flags, out, n, 0, status, stream);
+      case 2: return launch_seg<int32_t, OpMax>(x, flags, out, n, 0, status, stream);
     }
   }
   return (int)cudaErrorInvalidValue;

@@ -9,7 +9,8 @@ kernels in `csrc/scan.cu`:
     replacing `_wide_scan_carry_kernel`, on native 64-bit integers instead
     of two limbs). One read and one write per element, in 64 KB tiles
     (CARRY_TILE elements) of 16-byte loads, with a status word per tile
-    that packs flag and value.
+    that packs flag and value. The segmented scan (`segmented.py`,
+    SEG_TILE-element tiles) runs on the same design.
   * 3-phase (`single_pass=False`, and every float32 sum, as in JAX): the
     per-tile sums and their exclusive scan are glue in plain torch
     (phases 1-2), then scan_block scans every TILE-element tile and adds
@@ -18,6 +19,10 @@ kernels in `csrc/scan.cu`:
     "scan_block_wide" for 64-bit sums mod 2^64 (replacing
     `_wide_scan_block_kernel`), which widens 32-bit input on load. The
     input is read twice (block sums, kernel) and the sums written once.
+
+The look-back kernels share one status buffer per (device, stream),
+zeroed when it is made; each call's last block clears what the call used,
+so no call zeroes it.
 
 float64 sums are a plain torch.cumsum, as the JAX package leaves them to
 XLA. float16/bfloat16 sum types are computed in float32 and rounded at the
@@ -45,13 +50,17 @@ from cl_ops_tpu_torch.utils.bits import cdiv
 from cl_ops_tpu_torch.utils.platform import build_library, launch_stream
 
 KERNELS = ("scan_carry", "scan_carry_wide", "scan_block", "scan_block_wide")
-TILE = 4096    # elements per tile of scan_block and seg_scan_carry: TILE
+TILE = 4096    # elements per tile of scan_block: csrc/scan.cu TILE
 THREADS = 512  # csrc/scan.cu THREADS (and C_THREADS)
 WARPS = THREADS // 32
 # scan_carry's elements per 64 KB tile by value bytes: csrc/scan.cu
 # C_TILE_BYTES / value_bytes; its dynamic shared memory is one tile
 CARRY_TILE_BYTES = 64 * 1024
 CARRY_TILE = {4: CARRY_TILE_BYTES // 4, 8: CARRY_TILE_BYTES // 8}
+# seg_scan_carry's threads and elements per tile (csrc/scan.cu S_THREADS,
+# S_TILE); its dynamic shared memory is the tile's values and flags
+SEG_THREADS = 256
+SEG_TILE = 8192
 
 # Kernel launches per wrapper since the last reset_launches().
 launches = dict.fromkeys(KERNELS, 0)
@@ -75,11 +84,13 @@ def load_kernels():
         path, build_log = build_library("scan")
         lib = ctypes.CDLL(str(path))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for name in ("clo_scan_status_bytes", "clo_scan_carry_status_bytes"):
-            getattr(lib, name).argtypes = [ll, i]
-            getattr(lib, name).restype = ll
+        lib.clo_scan_carry_status_bytes.argtypes = [ll, i]
+        lib.clo_scan_carry_status_bytes.restype = ll
         lib.clo_scan_carry_tile.argtypes = [i]
         lib.clo_scan_carry_tile.restype = i
+        lib.clo_seg_scan_status_bytes.argtypes = [ll]
+        lib.clo_seg_scan_status_bytes.restype = ll
+        lib.clo_seg_scan_tile.restype = i
         # (x, out, n, value_bytes, exclusive, status, stream)
         lib.clo_scan_carry.argtypes = [p, p, ll, i, i, p, p]
         lib.clo_scan_carry.restype = i
@@ -90,39 +101,25 @@ def load_kernels():
         lib.clo_scan_block.argtypes = [p, p, p, ll, i, i, p]
         lib.clo_scan_block.restype = i
         lib.clo_scan_tile.restype = i
+        n = (1 << 20) + 1
         if lib.clo_scan_tile() != TILE or any(
                 lib.clo_scan_carry_tile(b) != t
-                or lib.clo_scan_carry_status_bytes(1 << 20, b)
-                != carry_status_bytes(1 << 20, b)
-                for b, t in CARRY_TILE.items()):
-            raise RuntimeError("csrc/scan.cu tile sizes differ from "
-                               "kernels.TILE / CARRY_TILE")
+                or lib.clo_scan_carry_status_bytes(n, b)
+                != carry_status_bytes(n, b)
+                for b, t in CARRY_TILE.items()) \
+                or lib.clo_seg_scan_tile() != SEG_TILE \
+                or lib.clo_seg_scan_status_bytes(n) != seg_status_bytes(n):
+            raise RuntimeError("csrc/scan.cu tile or status sizes differ "
+                               "from kernels.TILE / CARRY_TILE / SEG_TILE")
         _lib = lib
     return _lib
 
 
-def _stream_call(fn_name: str, dev, *args) -> None:
-    """Call `fn_name`(*args, stream) of the scan library on `dev`."""
-    lib = load_kernels()
-    with torch.cuda.device(dev):  # the library launches on it
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {fn_name} failed: error {err}")
-
-
-def run_scan_kernel(fn_name: str, x: torch.Tensor, *args) -> None:
-    """Call `fn_name`(*args, status, stream) of the scan library on x's
-    device with a freshly zeroed look-back status buffer for x."""
-    status = torch.zeros(load_kernels().clo_scan_status_bytes(
-        x.numel(), x.element_size()), dtype=torch.uint8, device=x.device)
-    _stream_call(fn_name, x.device, *args, status.data_ptr())
-
-
-# scan_carry's look-back status, one buffer per (device, stream): the
-# kernel's last block clears what the call used, so the next call on the
-# same stream finds it zeroed; a new or larger buffer starts zeroed.
-_carry_status: dict[tuple[int, int], torch.Tensor] = {}
+# The look-back status of scan_carry and seg_scan_carry, one buffer per
+# (device, stream): a kernel's last block clears what its call used, so the
+# next call on the same stream finds it zeroed; a new or larger buffer
+# starts zeroed.
+_status: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def carry_status_bytes(n: int, value_bytes: int) -> int:
@@ -131,15 +128,37 @@ def carry_status_bytes(n: int, value_bytes: int) -> int:
     return 16 + 2 * value_bytes * cdiv(n, CARRY_TILE[value_bytes])
 
 
-def _carry_status_for(x: torch.Tensor, stream: int) -> torch.Tensor:
-    need = carry_status_bytes(x.numel(), x.element_size())
-    key = (x.device.index, stream)
-    buf = _carry_status.get(key)
+def seg_status_bytes(n: int) -> int:
+    """csrc/scan.cu clo_seg_scan_status_bytes: a 16-byte ticket and tile
+    count, then one 8-byte word per tile."""
+    return 16 + 8 * cdiv(n, SEG_TILE)
+
+
+def _status_for(dev: torch.device, stream: int, need: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _status.get(key)
     if buf is None or buf.numel() < need:
         size = max(need, 2 * buf.numel()) if buf is not None else need
-        buf = torch.zeros(size, dtype=torch.uint8, device=x.device)
-        _carry_status[key] = buf
+        buf = torch.zeros(size, dtype=torch.uint8, device=dev)
+        _status[key] = buf
     return buf
+
+
+def run_kernel(fn_name: str, dev: torch.device, *args,
+               status_bytes: int = 0) -> None:
+    """Call `fn_name`(*args, stream) of the scan library on `dev`'s current
+    stream; status_bytes > 0 passes that stream's cached look-back status
+    buffer (at least that large) before the stream."""
+    lib = _lib or load_kernels()
+    here = dev.index == torch.cuda.current_device()
+    # the library launches on the current device
+    with contextlib.nullcontext() if here else torch.cuda.device(dev):
+        stream = launch_stream(dev)
+        if status_bytes:
+            args += (_status_for(dev, stream, status_bytes).data_ptr(),)
+        err = getattr(lib, fn_name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {fn_name} failed: error {err}")
 
 
 def check_1d(x: torch.Tensor, dtypes) -> bool:
@@ -154,10 +173,15 @@ def check_1d(x: torch.Tensor, dtypes) -> bool:
 
 def smem_bytes(kernel: str, value_bytes: int) -> int:
     """Shared memory per block of a scan kernel (csrc/scan.cu), for values
-    of value_bytes: static, plus scan_carry's dynamic tile."""
+    of value_bytes: static, plus the look-back kernels' dynamic tile."""
     if kernel in ("scan_carry", "scan_carry_wide"):
         # tile ticket, warp totals, and the tile itself (dynamic)
         return 4 + WARPS * value_bytes + CARRY_TILE_BYTES
+    if kernel == "seg_scan_carry":
+        # tile ticket, warp values and flags, and the tile's values and
+        # flags (dynamic)
+        return (4 + SEG_THREADS // 32 * (value_bytes + 4)
+                + SEG_TILE * (value_bytes + 4))
     if kernel in ("scan_block", "scan_block_wide"):
         return WARPS * value_bytes            # warp totals
     raise BadArgsError(f"unknown scan kernel {kernel!r}")
@@ -178,19 +202,10 @@ def scan_carry(x: torch.Tensor, exclusive: bool = False) -> torch.Tensor:
         return scan_carry_plain(x, exclusive)
     out = torch.empty_like(x)
     if x.numel():
-        lib = _lib or load_kernels()
-        dev = x.device
-        here = dev.index == torch.cuda.current_device()
-        # the library launches on the current device
-        with contextlib.nullcontext() if here else torch.cuda.device(dev):
-            stream = launch_stream(dev)
-            err = lib.clo_scan_carry(
-                x.data_ptr(), out.data_ptr(), x.numel(), x.element_size(),
-                int(exclusive), _carry_status_for(x, stream).data_ptr(),
-                stream)
-        if err != 0:
-            raise RuntimeError(f"CUDA kernel clo_scan_carry failed: error "
-                               f"{err}")
+        run_kernel("clo_scan_carry", x.device, x.data_ptr(), out.data_ptr(),
+                   x.numel(), x.element_size(), int(exclusive),
+                   status_bytes=carry_status_bytes(x.numel(),
+                                                   x.element_size()))
         launches["scan_carry" if x.dtype == torch.int32
                  else "scan_carry_wide"] += 1
     return out
@@ -264,7 +279,7 @@ def scan_block(x: torch.Tensor, base: torch.Tensor,
         return scan_block_plain(x, base, exclusive)
     out = torch.empty_like(x)
     if x.numel():
-        _stream_call("clo_scan_block", x.device, x.data_ptr(),
+        run_kernel("clo_scan_block", x.device, x.data_ptr(),
                      base.data_ptr(), out.data_ptr(), x.numel(),
                      int(x.dtype == torch.float32), int(exclusive))
         launches["scan_block"] += 1
@@ -286,7 +301,7 @@ def scan_block_wide(x: torch.Tensor, base: torch.Tensor,
         return scan_block_wide_plain(x, base, exclusive)
     out = torch.empty(x.numel(), dtype=torch.int64, device=x.device)
     if x.numel():
-        _stream_call("clo_scan_block", x.device, x.data_ptr(),
+        run_kernel("clo_scan_block", x.device, x.data_ptr(),
                      base.data_ptr(), out.data_ptr(), x.numel(),
                      _WIDE_KIND[x.dtype], int(exclusive))
         launches["scan_block_wide"] += 1

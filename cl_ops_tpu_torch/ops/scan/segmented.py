@@ -6,10 +6,15 @@ Counterpart of `cl_ops_tpu/ops/scan/segmented.py`. For an associative op
     (v1, f1) (x) (v2, f2) = (f2 ? v2 : v1 (+) v2,  f1 | f2)
 
 is associative, so a segmented scan is a plain scan of (value, flag) pairs.
-The kernel, `csrc/scan.cu` seg_scan_carry (replacing `_seg_carry_kernel`),
-runs it in one pass over int32 or float32 values with int32 flags: 12n bytes
-read and written. Its cross-block carry is the decoupled look-back of the
-plain scan with the tile summary (value since the last flag, any flag).
+The kernel, `csrc/scan.cu` seg_scan_carry (`seg_tiles`, replacing
+`_seg_carry_kernel`), runs it in one pass over int32 or float32 values with
+int32 flags: 12n bytes read and written. It is scan_carry's design with a
+pair carry: tiles of `kernels.SEG_TILE` elements read with 16-byte loads,
+each thread's contiguous items scanned serially, and one status word per
+tile holding its state, its any-flag bit and its value. A tile that holds
+a flag publishes its inclusive prefix before it looks back, and a
+look-back stops at the nearest such tile. The status buffer is cached per
+(device, stream) and cleared by each call's last block.
 
 Dtype rules follow the JAX package: <=32-bit integers run in int32 (sums
 mod 2^32; u32 min/max through a sign flip so that signed order is unsigned
@@ -29,7 +34,8 @@ import torch
 from cl_ops_tpu_torch.core.dtypes import canonicalize
 from cl_ops_tpu_torch.core.errors import BadArgsError, BadDtypeError
 from cl_ops_tpu_torch.interop import signed_view, take
-from cl_ops_tpu_torch.ops.scan.kernels import check_1d, run_scan_kernel
+from cl_ops_tpu_torch.ops.scan.kernels import (check_1d, run_kernel,
+                                               seg_status_bytes)
 from cl_ops_tpu_torch.utils import intmath
 
 __all__ = ["segmented_scan_1d", "flags_from_segment_ids"]
@@ -121,10 +127,10 @@ def seg_scan_carry(x: torch.Tensor, flags: torch.Tensor, op: str,
         return seg_scan_carry_plain(x, flags, op, exclusive)
     out = torch.empty_like(x)
     if x.numel():
-        run_scan_kernel("clo_seg_scan_carry", x, x.data_ptr(),
-                        flags.data_ptr(), out.data_ptr(), x.numel(),
-                        int(x.dtype == torch.float32), OPS.index(op),
-                        int(exclusive))
+        run_kernel("clo_seg_scan_carry", x.device, x.data_ptr(),
+                   flags.data_ptr(), out.data_ptr(), x.numel(),
+                   int(x.dtype == torch.float32), OPS.index(op),
+                   int(exclusive), status_bytes=seg_status_bytes(x.numel()))
         launches["seg_scan_carry"] += 1
     return out
 

@@ -55,6 +55,19 @@ def test_canonicalize_forms(name):
     assert tdt.signed_equivalent(name).itemsize == t.size
 
 
+def test_unsigned_equivalent():
+    assert tdt.unsigned_equivalent("int") == torch.uint32
+    assert tdt.unsigned_equivalent("double") == torch.uint64
+
+
+@pytest.mark.parametrize("name", NAMES + ["bfloat16"])
+def test_unsigned_equivalent_matches_reference(name):
+    """The same width as the JAX function's numpy dtype, for every type."""
+    u = tdt.unsigned_equivalent(name)
+    assert u == tdt.canonicalize(jdt.unsigned_equivalent(name))
+    assert not u.is_signed and u.itemsize == tdt.type_sizeof(name)
+
+
 def test_canonicalize_rejects_unknown():
     with pytest.raises(KeyError):
         tdt.canonicalize(torch.complex64)

@@ -11,7 +11,8 @@ limbs, 1-3 value columns, empty and ragged build sides and several window
 starts, and its edge cases (windows at the build's start and clamped at
 its end, probes below every window row, equal high limbs, ragged probe
 blocks, runs of equal probes across chunk edges, an unsorted chunk among
-sorted ones); the
+sorted ones); seg_scan_carry around its tile, unaligned, with no, every and
+tile-start flags, and back to back; the
 block scans at lengths 0, 1 and ragged tails; rank_hist with short tiles,
 radix 4-256 and digits outside the bins; rank_hist_limb at every shift of
 radix 4-256 and tiles of 512-16384 rows, and satradix's one launch of it
@@ -326,36 +327,101 @@ def test_scan_carry_back_to_back(cuda, dtype):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("n", SCAN_LENGTHS)
-@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-@pytest.mark.parametrize("op", ["add", "min", "max"])
-@pytest.mark.parametrize("density", [1 / 256, 1e-6])
-def test_seg_scan_carry_matches_plain(cuda, n, dtype, op, density):
-    rng = np.random.default_rng(n + 1)
+SEG_T = sk.SEG_TILE
+SEG_CASES = {  # (length, segment flags: a density, "all" or "tile starts",
+    #             elements the views start into their buffers)
+    **{f"n={n} density={d:g}": (n, d, 0)
+       for n in SCAN_LENGTHS for d in (1 / 256, 1e-6)},
+    "tile - 1": (SEG_T - 1, 1 / 256, 0), "tile": (SEG_T, 1 / 256, 0),
+    "tile + 1": (SEG_T + 1, 1 / 256, 0),
+    "five tiles + 3": (5 * SEG_T + 3, 1 / 256, 0),
+    "unaligned": (3 * SEG_T + 5, 1 / 256, 1),
+    "no flags, long chain": ((1 << 22) + 5, 0.0, 0),
+    "every row flagged": ((1 << 20) + 3, "all", 0),
+    "flags at tile starts": (64 * SEG_T + 7, "tile starts", 0)}
+
+
+def _seg_input(n, dtype, op, flags, offset, seed):
+    """Values and segment flags for seg_scan_carry on the host, `offset`
+    elements into buffers of n + offset (float32 min/max with NaNs and
+    negative zeros)."""
+    rng = np.random.default_rng(seed)
+    m = n + offset
     if dtype == torch.int32:
-        x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n,
+        x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, m,
                                           dtype=np.int32))
     else:
-        xs = rng.uniform(-1, 1, n).astype(np.float32)
+        xs = rng.uniform(-1, 1, m).astype(np.float32)
         if op != "add":
-            xs[rng.random(n) < 1e-3] = np.nan
-            xs[rng.random(n) < 1e-3] = -0.0
+            xs[rng.random(m) < 1e-3] = np.nan
+            xs[rng.random(m) < 1e-3] = -0.0
         x = torch.from_numpy(xs)
-    flags = torch.from_numpy((rng.random(n) < density).astype(np.int32))
+    if flags == "all":
+        f = np.ones(m, np.int32)
+    elif flags == "tile starts":
+        f = (np.arange(m) % SEG_T == offset).astype(np.int32)
+    else:
+        f = (rng.random(m) < flags).astype(np.int32)
+    return x, torch.from_numpy(f)
+
+
+def _check_seg(got, x, flags, op, exclusive):
+    """got against seg_scan_carry_plain: bit for bit (NaN by isnan, +0 ==
+    -0), float32 add within _f32_add_tolerance."""
+    want = seg.seg_scan_carry_plain(x, flags, op, exclusive)
+    if x.dtype == torch.float32 and op == "add":
+        assert bool(((got - want).abs()
+                     <= _f32_add_tolerance(x, flags)).all())
+    else:
+        assert torch.equal(got.isnan(), want.isnan())
+        ok = got.isnan()
+        assert torch.equal(got[~ok], want[~ok])  # +0 == -0
+
+
+@pytest.mark.parametrize("case", list(SEG_CASES))
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+def test_seg_scan_carry_matches_plain(cuda, case, dtype, op):
+    """seg_scan_carry at lengths around its tile, from buffers that are
+    not 16-byte aligned, with no flags (the look-back walks the whole
+    chain), every row flagged and flags only at tile starts."""
+    n, density, offset = SEG_CASES[case]
+    xb, fb = _seg_input(n, dtype, op, density, offset, n + 1)
+    x, flags = xb[offset:], fb[offset:]
+    dx, dflags = xb.to(cuda)[offset:], fb.to(cuda)[offset:]
     for exclusive in ([False, True] if op == "add" else [False]):
         seg.reset_launches()
-        got = seg.seg_scan_carry(x.to(cuda), flags.to(cuda), op,
-                                 exclusive).cpu()
+        got = seg.seg_scan_carry(dx, dflags, op, exclusive).cpu()
         torch.cuda.synchronize()
         assert seg.launches["seg_scan_carry"] == 1
-        want = seg.seg_scan_carry_plain(x, flags, op, exclusive)
-        if dtype == torch.float32 and op == "add":
-            assert bool(((got - want).abs()
-                         <= _f32_add_tolerance(x, flags)).all())
-        else:
-            assert torch.equal(got.isnan(), want.isnan())
-            ok = got.isnan()
-            assert torch.equal(got[~ok], want[~ok])  # +0 == -0
+        _check_seg(got, x, flags, op, exclusive)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_seg_scan_carry_back_to_back(cuda, dtype):
+    """Calls queued on one stream without a synchronize between them, at
+    two lengths, with and without flags, and a scan_carry among them: the
+    status buffer they share must be clear at each call's start."""
+    calls = []
+    for n in ((1 << 22) + 7, 3 * SEG_T + 1):
+        for density in (1 / 256, 0.0):
+            calls += [(*_seg_input(n, dtype, op, density, 0, n), op,
+                       op == "add") for op in ("add", "max")]
+    seg.reset_launches()
+    sk.reset_launches()
+    got = []
+    for x, f, op, exclusive in calls:
+        got.append(seg.seg_scan_carry(x.to(cuda), f.to(cuda), op,
+                                      exclusive))
+        if len(got) == 4:
+            ci, dci = _carry_input((1 << 21) + 3, torch.int32, 9)
+            carried = sk.scan_carry(dci)
+    torch.cuda.synchronize()
+    assert seg.launches["seg_scan_carry"] == len(calls)
+    assert sk.launches["scan_carry"] == 1
+    assert torch.equal(carried.cpu(), sk.scan_carry_plain(ci, False))
+    for g, (x, f, op, exclusive) in zip(got, calls):
+        _check_seg(g.cpu(), x, f, op, exclusive)
 
 
 def test_group_aggregate_cols_on_card(cuda):

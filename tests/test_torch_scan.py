@@ -172,3 +172,15 @@ def test_scan_carry_checks_and_counts():
     assert set(tsk.launches.values()) == {0}
     assert tsk.scan_traffic_bytes(1 << 20, "uint") == 8 << 20
     assert tsk.scan_traffic_bytes(1 << 20, "ulong") == 16 << 20
+
+
+def test_seg_scan_carry_smem_and_status_bytes():
+    """The segmented kernel's shared memory per block: the tile ticket,
+    8 warps' value and flag, and the tile's values and flags (dynamic);
+    its status: a 16-byte ticket, then 8 bytes per SEG_TILE elements."""
+    assert (tsk.SEG_THREADS, tsk.SEG_TILE) == (256, 8192)
+    assert tsk.smem_bytes("seg_scan_carry", 4) == 4 + 8 * 8 + 8192 * 8
+    assert [tsk.seg_status_bytes(n) for n in (1, 8192, 8193, 1 << 24)] == \
+        [24, 24, 32, 16 + 8 * 2048]
+    with pytest.raises(BadArgsError):
+        tsk.smem_bytes("seg_tiles", 4)
