@@ -23,7 +23,12 @@ rows in 64K partitions in both output forms, top-1K of 64M u32 and a
 duplicate flood at 16M, DISTINCT over 64M u32 with 1M values, and the
 blocked run copy of one radix-16 pass over 16M keys), checks every result
 against torch, numpy or a formula, and times the kernels and the phases
-with CUDA events. Run from the repository root:
+with CUDA events. Then the seven RNG generators (card against CPU at
+262144 streams x 10 draws and on the first 4096 of 2^24 streams x 16
+draws, HOST_MT states against numpy's), the measured stream ceiling, a
+trace with a named() label and timed(), the port's headline JSON line
+(`bench/headline.py`), and the sort, scan and rng bench CLIs, each of which
+must return 0 with every check "ok". Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -73,6 +78,9 @@ TOPK_N, TOPK_K = 1 << 26, 1024         # bench_all.py config 10
 FLOOD_N, FLOOD_K = 1 << 24, 10         # test_topk.py's flood, scaled
 DISTINCT_N, DISTINCT_U = 1 << 26, 1 << 20  # bench_all.py config 11
 DMA_N, DMA_BLOCK, DMA_RADIX = 1 << 24, 1 << 16, 16  # radix_dma_probe.py
+RNG_STREAMS, RNG_DRAWS = 262144, 10  # rng_bench.py's defaults (ref gws)
+RNG_BIG_STREAMS, RNG_BIG_DRAWS = 1 << 24, 16  # 2^28 values: BASELINE cfg 4
+RNG_CHECK_STREAMS = 4096
 
 
 def phase(name):
@@ -1367,6 +1375,164 @@ def query_cells(dev, reset, count):
         del src, runs, out, params
 
 
+def rng_cells(dev):
+    """The seven generators: DEV_GID + knuth at rng_bench's default
+    (262144 streams x 10 draws) on the card against the same call on CPU
+    tensors, and HOST_MT states against numpy's; then 2^24 streams x 16
+    draws (2^28 u32 values, BASELINE config 4's 256M generated keys),
+    whose first 4096 streams equal a CPU run over 4096 streams (a DEV_GID
+    stream depends only on its gid). Returns one record per generator."""
+    import numpy as np
+    import torch
+
+    from cl_ops_tpu_torch import interop
+    from cl_ops_tpu_torch.ops.rng import generator_names, rng_new
+
+    def same(tag, a, b):
+        if not torch.equal(interop.signed_view(a).cpu(),
+                           interop.signed_view(b)):
+            raise AssertionError(f"rng {tag}: card differs from the CPU")
+
+    recs = []
+    for name in generator_names():
+        kw = dict(main_seed=SEED, hash_name="knuth")
+        card = rng_new(name, "dev_gid", RNG_STREAMS, device=dev, **kw)
+        host = rng_new(name, "dev_gid", RNG_STREAMS, device="cpu", **kw)
+        same(f"{name} seeds", card.states, host.states)
+        same(f"{name} draws", card.generate(RNG_DRAWS),
+             host.generate(RNG_DRAWS))
+        same(f"{name} final states", card.states, host.states)
+        mt = rng_new(name, "host_mt", RNG_STREAMS, main_seed=SEED,
+                     device=dev)
+        gen = mt._gen
+        words = RNG_STREAMS * gen.seed_bytes // 4
+        want = np.random.RandomState(SEED).randint(
+            0, 2 ** 32, words, dtype=np.uint32).view(gen.state_dtype)
+        if not np.array_equal(
+                interop.to_numpy(mt.states, gen.state_dtype).reshape(-1),
+                want):
+            raise AssertionError(f"rng {name}: HOST_MT states differ from "
+                                 "numpy's")
+
+        big = rng_new(name, "dev_gid", RNG_BIG_STREAMS, device=dev, **kw)
+        small = rng_new(name, "dev_gid", RNG_CHECK_STREAMS, device="cpu",
+                        **kw)
+        out = big.generate(RNG_BIG_DRAWS)
+        same(f"{name} first {RNG_CHECK_STREAMS} streams of {RNG_BIG_STREAMS}",
+             out[:, :RNG_CHECK_STREAMS].contiguous(),
+             small.generate(RNG_BIG_DRAWS))
+        del out
+        ms = cuda_ms(lambda: big.generate(RNG_BIG_DRAWS), 3)
+        values = RNG_BIG_STREAMS * RNG_BIG_DRAWS
+        nbytes = 2 * RNG_BIG_STREAMS * gen.seed_bytes + 4 * values
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        rec = {"rng": name, "streams": RNG_BIG_STREAMS,
+               "draws": RNG_BIG_DRAWS, "ms": ms,
+               "mvalues_s": values / ms / 1e3, "model_bytes": nbytes,
+               "bound_ms": bound_ms, "share_of_bound": bound_ms / ms}
+        print(json.dumps(rec))
+        recs.append(rec)
+        del big
+    return recs
+
+
+def profiling_cells(dev):
+    """The stream ceiling measured (beside the nominal PEAK_BYTES_S, which
+    every share in this script keeps dividing by), a trace of one 16M sort
+    holding a named() label, and timed() filling its dict."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cl_ops_tpu_torch import interop
+    from cl_ops_tpu_torch.bench import roofline
+    from cl_ops_tpu_torch.ops.sort import sort_new
+    from cl_ops_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = {k: os.environ.pop(k, None)
+                 for k in (roofline.GBS_ENV, roofline.CACHE_ENV)}
+        os.environ[roofline.CACHE_ENV] = os.path.join(tmp, "roofline.json")
+        roofline.stream_ceiling_gbs.cache_clear()
+        ceiling = roofline.stream_ceiling_gbs()
+        del os.environ[roofline.CACHE_ENV]
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+        nominal = PEAK_BYTES_S / 1e9
+        print(json.dumps({"stream_ceiling_gb_s": ceiling,
+                          "nominal_gb_s": nominal,
+                          "ceiling_over_nominal": ceiling / nominal}))
+        if not 0 < ceiling <= 1.05 * nominal:
+            raise AssertionError(f"stream ceiling {ceiling} GB/s outside "
+                                 f"(0, 1.05 x {nominal}]")
+
+        keys = interop.to_torch(np.random.default_rng(SEED + 13).integers(
+            0, 2 ** 32, SORT_N, dtype=np.uint32), dev)
+        sorter = sort_new("abitonic")
+        label = "chip_smoke abitonic 16M"
+        with profiling.trace(tmp):
+            with profiling.named(label):
+                sorter.sort_with_device_data(keys)
+            torch.cuda.synchronize()
+        files = [f for f in os.listdir(tmp) if f.startswith("trace_")]
+        if len(files) != 1:
+            raise AssertionError(f"trace() wrote {files}")
+        with open(os.path.join(tmp, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        if not any(e.get("name") == label for e in events):
+            raise AssertionError("the named() label is not in the trace")
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        results = {}
+        with profiling.timed("sort", results):
+            sorter.sort_with_device_data(keys)
+        if not results.get("sort", 0) > 0:
+            raise AssertionError(f"timed() left {results}")
+        print(json.dumps({"trace_events": len(events),
+                          "trace_kernel_events": kernels,
+                          "timed_sort_s": results["sort"]}))
+
+
+def bench_cli_cells(reset, count):
+    """The headline line and the reference-parity CLIs, each driven once
+    between reset() and count(); every CLI must return 0 with every row's
+    check "ok"."""
+    import tempfile
+
+    from cl_ops_tpu_torch.bench import (headline, rng_bench, scan_bench,
+                                        sort_bench)
+
+    with phase("headline"):
+        reset()
+        if headline.main([]) != 0:
+            raise AssertionError("headline failed")
+        count("headline")
+
+    calls = [(sort_bench, "-a abitonic --minpo2 20 -n 24 -r 5"),
+             (sort_bench, "-a satradix -t ulong --kv --minpo2 24 -n 24 -r 3"),
+             (scan_bench, "-a blelloch --min-doub 20 -n 24"),
+             (scan_bench, "-a lookback --min-doub 20 -n 24"),
+             (rng_bench, "-g threefry --output none"),
+             (rng_bench, "-g xorshift128 --output none")]
+    with phase("bench CLIs"), tempfile.TemporaryDirectory() as tmp:
+        for i, (mod, argv) in enumerate(calls):
+            tag = f"{mod.__name__.rsplit('.', 1)[1]} {argv}"
+            tsv = os.path.join(tmp, f"{i}.tsv")
+            out = [] if mod is rng_bench else ["--out", tsv]
+            reset()
+            t = time.perf_counter()
+            if mod.main(argv.split() + out) != 0:
+                raise AssertionError(f"{tag} failed")
+            print(f"{tag}: {time.perf_counter() - t:.3f} s")
+            count(tag)
+            if out:
+                with open(tsv) as f:
+                    rows = f.read().split("\n")[1:-1]
+                if not rows or any(not r.endswith("\tok") for r in rows):
+                    raise AssertionError(f"{tag}: checks {rows}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1817,6 +1983,11 @@ def main() -> int:
     join_cells(dev, reset, count)
     sort_family_cells(dev, reset, count)
     query_cells(dev, reset, count)
+    with phase("rng generators"):
+        rng_cells(dev)
+    with phase("profiling and roofline"):
+        profiling_cells(dev)
+    bench_cli_cells(reset, count)
 
     for name, n in main_launches.items():
         if n <= 0:

@@ -16,13 +16,13 @@ is recorded as infeasible behind a caught error.
 
 from __future__ import annotations
 
-import json
 import os
 import statistics
 
 import torch
 
 from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
+from cl_ops_tpu_torch.utils import jsoncache
 
 CACHE_ENV = "CL_OPS_AUTOTUNE_CACHE"
 _mem_cache: dict[str, tuple[int, int, bool]] = {}
@@ -31,22 +31,6 @@ _mem_cache: dict[str, tuple[int, int, bool]] = {}
 def cache_path() -> str:
     return os.environ.get(CACHE_ENV) or os.path.expanduser(
         "~/.cl_ops_tpu_torch_autotune.json")
-
-
-def _load() -> dict:
-    try:
-        with open(cache_path()) as f:
-            return json.load(f)
-    except FileNotFoundError:
-        return {}
-
-
-def _save(d: dict) -> None:
-    path = cache_path()
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "w") as f:
-        json.dump(d, f, indent=1, sort_keys=True)
-    os.replace(tmp, path)
 
 
 def candidate_geometries(n_padded: int,
@@ -106,7 +90,7 @@ def tune_geometry(n_padded: int, n_arrays: int,
     key = f"{device_kind(device)}:{n_padded}x{n_arrays}"
     if key in _mem_cache:
         return _mem_cache[key]
-    disk = _load()
+    disk = jsoncache.load(cache_path())
     if key not in disk:
         gen = torch.Generator(device=device).manual_seed(n_padded + n_arrays)
         src = [torch.randint(-2 ** 31, 2 ** 31 - 1, (n_padded,),
@@ -115,7 +99,7 @@ def tune_geometry(n_padded: int, n_arrays: int,
         times = {geo: time_candidate(geo, src)
                  for geo in candidate_geometries(n_padded, n_arrays)}
         disk[key] = list(min(times, key=times.get))
-        _save(disk)
+        jsoncache.save(cache_path(), disk)
     b, m, sl = disk[key]
     _mem_cache[key] = (int(b), int(m), bool(sl))
     return _mem_cache[key]

@@ -138,3 +138,57 @@ def int_limits(dtype: torch.dtype) -> tuple[int, int]:
     if is_unsigned(dtype):
         return 0, (1 << bits) - 1
     return -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+
+
+# --- u64 and u32 products held in int64 --------------------------------------
+# A u64 value lives in an int64 tensor as its bits; a u32 word in an int64
+# tensor as its value (0 <= x < 2^32). Every partial product below stays
+# under 2^49, so no int64 operation overflows.
+
+_M16 = 0xFFFF
+_M24 = 0xFFFFFF
+_M48 = (1 << 48) - 1
+
+
+def i64(v: int) -> int:
+    """Python int -> the signed int64 value with the same low 64 bits."""
+    v &= (1 << 64) - 1
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def shr64(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of the u64 bits in an int64 tensor, 0 < k < 64."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def mul32_wide(a: torch.Tensor, b) -> tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32-bit words of the 64-bit product of two u32 values in
+    int64 (b may be a python int); a is split into 16-bit pieces."""
+    p0 = (a & _M16) * b
+    p1 = (a >> 16) * b
+    lo = p0 + ((p1 & _M16) << 16)
+    return (p1 >> 16) + (lo >> 32), lo & _M32
+
+
+def mul32_low(a: torch.Tensor, b) -> torch.Tensor:
+    """The product of two u32 values in int64, mod 2^32."""
+    return ((a & _M16) * b + ((((a >> 16) * b) & _M16) << 16)) & _M32
+
+
+def mul64(a: torch.Tensor, b: int) -> torch.Tensor:
+    """a * b mod 2^64 for u64 bits a in an int64 tensor and a python int b."""
+    b &= (1 << 64) - 1
+    b_lo, b_hi = b & _M32, b >> 32
+    a_lo, a_hi = a & _M32, shr64(a, 32)
+    hi, lo = mul32_wide(a_lo, b_lo)
+    hi = (hi + mul32_low(a_lo, b_hi) + mul32_low(a_hi, b_lo)) & _M32
+    return _join64(hi, lo)
+
+
+def mul48(a: torch.Tensor, b: int) -> torch.Tensor:
+    """a * b mod 2^48 for int64 a and a python int b, from 24-bit halves
+    of both (taken mod 2^48 first)."""
+    a, b = a & _M48, b & _M48
+    a_lo, a_hi, b_lo, b_hi = a & _M24, a >> 24, b & _M24, b >> 24
+    cross = (a_lo * b_hi + a_hi * b_lo) & _M24
+    return (a_lo * b_lo + (cross << 24)) & _M48

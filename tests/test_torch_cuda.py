@@ -1090,3 +1090,45 @@ def test_new_operators_on_card_match_cpu(cuda):
             _same(got, top_k(v, 16, host[1], largest=largest))
     _same(distinct(keys.to(cuda), capacity=4096),
           distinct(keys, capacity=4096))
+
+
+@pytest.mark.parametrize("name", ["lcg", "xorshift64", "xorshift128",
+                                  "mwc64x", "parkmiller", "tauslcg",
+                                  "threefry"])
+@pytest.mark.parametrize("seeding", [("dev_gid", "knuth", 42),
+                                     ("dev_gid", "xs1", 2 ** 64 - 9),
+                                     ("host_mt", None, 7)])
+def test_rng_on_card_matches_cpu(cuda, name, seeding):
+    """Each generator's states and draws on the card equal the CPU's bit
+    for bit at 4096 streams, through generate and next_int."""
+    from cl_ops_tpu_torch.ops.rng import rng_new
+    seed_type, hash_name, seed = seeding
+    kw = dict(num_streams=4096, main_seed=seed, hash_name=hash_name)
+    card = rng_new(name, seed_type, device=cuda, **kw)
+    host = rng_new(name, seed_type, device="cpu", **kw)
+    assert card.states.device.type == "cuda"
+    assert torch.equal(card.states.cpu(), host.states)
+    assert torch.equal(card.generate(16).view(torch.int32).cpu(),
+                       host.generate(16).view(torch.int32))
+    assert torch.equal(card.next_int(1000, 4).view(torch.int32).cpu(),
+                       host.next_int(1000, 4).view(torch.int32))
+    assert torch.equal(card.states.cpu(), host.states)
+
+
+def test_stream_ceiling_on_card(cuda, tmp_path, monkeypatch):
+    """The measured ceiling lies in (0, 1.05 x 3350] GB/s and is cached per
+    device name and size in $CL_OPS_ROOFLINE_CACHE."""
+    from cl_ops_tpu_torch.bench import roofline
+    cache = tmp_path / "roofline.json"
+    monkeypatch.setenv(roofline.CACHE_ENV, str(cache))
+    monkeypatch.delenv(roofline.GBS_ENV, raising=False)
+    roofline.stream_ceiling_gbs.cache_clear()
+    try:
+        gbs = roofline.stream_ceiling_gbs(mb=256)
+        assert 0 < gbs <= 1.05 * 3350
+        name = torch.cuda.get_device_name(cuda).replace(" ", "_")
+        assert json.loads(cache.read_text()) == {f"{name}:256": gbs}
+        roofline.stream_ceiling_gbs.cache_clear()
+        assert roofline.stream_ceiling_gbs(mb=256) == gbs  # from the file
+    finally:
+        roofline.stream_ceiling_gbs.cache_clear()
