@@ -27,8 +27,13 @@ with CUDA events. Then the seven RNG generators (card against CPU at
 262144 streams x 10 draws and on the first 4096 of 2^24 streams x 16
 draws, HOST_MT states against numpy's), the measured stream ceiling, a
 trace with a named() label and timed(), the port's headline JSON line
-(`bench/headline.py`), and the sort, scan and rng bench CLIs, each of which
-must return 0 with every check "ok". Run from the repository root:
+(`bench/headline.py`), the sort, scan and rng bench CLIs, each of which
+must return 0 with every check "ok", and the query CLIs (exec_bench's seven
+ops and three variants, pipeline_probe's q1, rollup and expand,
+radix_dma_probe, and bench_all's twelve configs at full scale), each of
+which must return 0 with every check against numpy passing; each bench_all
+metric's time_adaptive ms is printed beside the event ms of its cell
+earlier in the run. Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -152,6 +157,10 @@ def kernel_ms(name, fn, reps, before=None):
     return {"ms": ms, "device_ms": us / 1e3 / reps}
 
 
+# Each cell's event ms (the median of cuda_ms), by cell name, for the query
+# CLIs' phase to set beside bench_all's time_adaptive ms.
+EVENT_MS = {}
+
 # Device ms of each of the port's CUDA kernels (DEVICE_KERNEL's values)
 # summed over every cell that device_breakdown traces.
 PROFILED_MS = dict.fromkeys(sorted(set(DEVICE_KERNEL.values())), 0.0)
@@ -235,6 +244,12 @@ def max_abs_err(got, want):
     import torch
     return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                if g.numel() else 0 for g, w in zip(got, want))
+
+
+def held(tag, fails):
+    """Raise on the failures a `bench/checks.py` oracle returned."""
+    if fails:
+        raise AssertionError(f"{tag}: {'; '.join(fails)}")
 
 
 def scan_record(name, n, kern, plain, library, nbytes, shape, tol=None,
@@ -462,6 +477,7 @@ def report(cell, fn, reps, model_bytes, launches, rows, **extra):
     """Time a cell's call with CUDA events, trace it once, and print its
     line: ms, Mrows/s, model bytes and their bound, launches."""
     ms = cuda_ms(fn, reps)
+    EVENT_MS[cell] = ms
     device_breakdown(cell, fn)
     bound_ms = model_bytes / PEAK_BYTES_S * 1e3
     print(json.dumps({"cell": cell, "ms": ms, "mrows_s": rows / ms / 1e3,
@@ -479,6 +495,7 @@ def join_cells(dev, reset, count):
     import torch
 
     from cl_ops_tpu_torch import interop
+    from cl_ops_tpu_torch.bench import checks
     from cl_ops_tpu_torch.models import pipeline
     from cl_ops_tpu_torch.ops.exec import bandprobe as bp
     from cl_ops_tpu_torch.ops.exec import hash_join, hash_join_expand, psort
@@ -620,15 +637,9 @@ def join_cells(dev, reset, count):
         check("rollup: overflow flag clear", not bool(ovf))
         keys, meas = (interop.to_numpy(t) for t in pipeline.generate_table(
             n, SEED, key_space=2 * nd, device=dev))
-        uniq = np.unique(keys)
-        contrib = np.where(keys % 2 == 0, meas.astype(np.int64), 0)
-        sums = np.bincount(keys, weights=contrib, minlength=2 * nd)[uniq]
+        held("rollup", checks.rollup(keys, meas, gk, table, cnt))
         c = int(cnt)
-        check("rollup count", c == len(uniq))
-        check("rollup keys", np.array_equal(interop.to_numpy(gk)[:c], uniq))
-        check("rollup sums", np.array_equal(
-            interop.to_numpy(table)[:c].astype(np.float64), sums))
-        del gk, table, keys, meas, contrib
+        del gk, table, keys, meas
         report(f"rollup_query {n} x {nd} defer", rollup, 3,
                psort.sort_traffic_bytes(n, 4)
                + bp.band_pass_traffic_bytes(n, 1, nd,
@@ -1026,28 +1037,6 @@ def sort_family_cells(dev, reset, count):
         report(tag, gsel, 3, 2 * 8 * ng, launches, ng, compares=ng * ng)
 
 
-def radix_run_table(n, block, radix):
-    """radix_dma_probe.py's phase 2: n int32 keys from RandomState(0), cut
-    into blocks of `block` keys; each (block, digit) pair of the low digit
-    is one run, in digit-major order, with chunk-aligned destinations.
-    Returns (keys, run starts, destinations, lengths, n_chunks) as numpy."""
-    import numpy as np
-    from cl_ops_tpu_torch.ops.sort import dma_scatter as ds
-    keys = np.random.RandomState(0).randint(0, 1 << 31, size=n,
-                                            dtype=np.int64).astype(np.int32)
-    nb = n // block
-    hist = np.bincount(np.repeat(np.arange(nb) * radix, block)
-                       + (keys & (radix - 1)),
-                       minlength=nb * radix).reshape(nb, radix)
-    off_in_block = np.cumsum(hist, axis=1) - hist
-    starts = (np.arange(nb)[:, None] * block + off_in_block).T.reshape(-1)
-    lengths = hist.T.reshape(-1)
-    qlen = (lengths + ds.CHUNK - 1) // ds.CHUNK * ds.CHUNK
-    qstarts = np.cumsum(qlen) - qlen
-    return (keys, starts.astype(np.int32), qstarts.astype(np.int32),
-            lengths.astype(np.int32), n // ds.CHUNK + radix * nb)
-
-
 def query_kernel_records(dev):
     """dense_agg over DENSE_N rows at each of DENSE_GROUPS (masked; an
     int32 sum, a flipped u32 min and max, float32 limbs' min and max), and
@@ -1056,6 +1045,7 @@ def query_kernel_records(dev):
     into the groups; for chunk_copy, which no library call computes, the
     clone() of its source for scale."""
     import torch
+    from cl_ops_tpu_torch.bench.radix_dma_probe import radix_run_table
     from cl_ops_tpu_torch.ops.exec import dense_agg as da
     from cl_ops_tpu_torch.ops.sort import dma_scatter as ds
     from cl_ops_tpu_torch.ops.sort import keys as keymod
@@ -1132,6 +1122,8 @@ def query_cells(dev, reset, count):
     import torch
 
     from cl_ops_tpu_torch import interop
+    from cl_ops_tpu_torch.bench import checks
+    from cl_ops_tpu_torch.bench.radix_dma_probe import radix_run_table
     from cl_ops_tpu_torch.ops.exec import (distinct,
                                            group_aggregate_dense_cols, psort,
                                            top_k, topk, window_cols)
@@ -1235,14 +1227,8 @@ def query_cells(dev, reset, count):
         wv = np.random.RandomState(11).randint(0, 100, size=n) \
             .astype(np.int32)
         dk, do, dv = (interop.to_torch(a, dev) for a in (wk, wo, wv))
-        idx = np.lexsort((np.arange(n), wo, wk))  # the window order
-        sk = wk[idx]
-        start = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
-        run_len = np.diff(np.r_[start, n])
-        row_start = np.repeat(start, run_len)
-        csum = np.cumsum(wv[idx], dtype=np.int64)
-        run_sum = csum - np.repeat(np.r_[0, csum[start[1:] - 1]], run_len)
-        row_num = np.arange(n) - row_start + 1
+        oracle = checks.window_oracle(wk, wo, wv)
+        partitions = int((oracle[2] == 1).sum())
         sorted_bytes = psort.sort_traffic_bytes(n, 4) + WINDOW_SCAN_BYTES * n
         for form, kw, model in (
                 ("restore", {}, sorted_bytes
@@ -1254,22 +1240,11 @@ def query_cells(dev, reset, count):
                 return window_cols(dk, do, (dv, None), ("sum", "row_number"),
                                    **kw)
             out, launches = drive(tag, win)
-            if form == "restore":
-                got_s, got_r = (interop.to_numpy(t) for t in out)
-                check(f"{tag}: sums", np.array_equal(got_s[idx], run_sum))
-                check(f"{tag}: row numbers",
-                      np.array_equal(got_r[idx], row_num))
-            else:
-                (got_s, got_r), src = out
-                check(f"{tag}: row_src", np.array_equal(
-                    interop.to_numpy(src), idx))
-                check(f"{tag}: sums", np.array_equal(
-                    interop.to_numpy(got_s), run_sum))
-                check(f"{tag}: row numbers", np.array_equal(
-                    interop.to_numpy(got_r), row_num))
-            del out, got_s, got_r
-            report(tag, win, 3, model, launches, n, partitions=len(start))
-        del dk, do, dv, idx, csum, run_sum, row_start, row_num
+            held(tag, checks.window(oracle, *out[0], out[1]) if kw
+                 else checks.window(oracle, *out))
+            del out
+            report(tag, win, 3, model, launches, n, partitions=partitions)
+        del dk, do, dv, oracle
 
     # bench_all.py config 10: top-1K of 64M u32 with an int32 payload; and
     # a duplicate flood that takes the exact branch
@@ -1281,20 +1256,12 @@ def query_cells(dev, reset, count):
         tp = np.random.RandomState(13).randint(0, 1 << 30, size=n) \
             .astype(np.int32)
         dtv, dtp = interop.to_torch(tv, dev), interop.to_torch(tp, dev)
-        # numpy's stable order of the k smallest: every row up to the k-th
-        # value, by (value, position)
-        kth = np.partition(tv, k - 1)[k - 1]
-        cand = np.flatnonzero(tv <= kth)
-        want = cand[np.argsort(tv[cand], kind="stable")][:k]
 
         def tk():
             return top_k(dtv, k, dtp)
         (ov, op), launches = drive(tag, tk)
         branch = topk.last_branch
-        check(f"{tag}: values", np.array_equal(interop.to_numpy(ov),
-                                               tv[want]))
-        check(f"{tag}: payload", np.array_equal(interop.to_numpy(op),
-                                                tp[want]))
+        held(tag, checks.top_k(tv, tp, k, ov, op))
         report(tag, tk, 5, n * sum(TOPK_BYTES_PER_ROW.values()), launches,
                n, branch=branch)
         del dtv, dtp, tv, tp
@@ -1334,16 +1301,13 @@ def query_cells(dev, reset, count):
         def dist():
             return distinct(ddk, capacity=u)
         (vals, cnt), launches = drive(tag, dist)
-        uniq = np.unique(dk_h)
+        held(tag, checks.distinct(dk_h, vals, cnt))
         c = int(cnt)
-        check(f"{tag}: count", c == len(uniq))
-        check(f"{tag}: values", np.array_equal(interop.to_numpy(vals)[:c],
-                                               uniq))
         del vals
         report(tag, dist, 3, 2 * psort.sort_traffic_bytes(n, 1)
                + n * sum(DISTINCT_BYTES_PER_ROW.values()), launches, n,
                distinct=c)
-        del ddk, dk_h, uniq
+        del ddk, dk_h
 
     # radix_dma_probe.py phase 2: the blocked writes of one radix-16 pass
     n = DMA_N
@@ -1533,6 +1497,57 @@ def bench_cli_cells(reset, count):
                     raise AssertionError(f"{tag}: checks {rows}")
 
 
+def query_cli_cells(reset, count):
+    """The query CLIs (exec_bench, pipeline_probe, radix_dma_probe and
+    bench_all at full scale), each driven once between reset() and count()
+    and required to return 0, every check passing; then each bench_all
+    metric's time_adaptive ms beside the event ms of its cell earlier in
+    this run."""
+    import tempfile
+
+    from cl_ops_tpu_torch.bench import (bench_all, exec_bench,
+                                        pipeline_probe, radix_dma_probe)
+
+    ops = ("filter", "aggregate", "join", "expand", "window", "topk",
+           "distinct")
+    calls = [(exec_bench, f"--op {op}") for op in ops]
+    # skewed probes; then the sparse expansion at the defaults and where
+    # its pass 2 overflows into the direct gather (fewer probes than keys)
+    calls += [(exec_bench, "--op join --zipf 1.1"),
+              (exec_bench, "--op expand --sparse"),
+              (exec_bench, "--op expand --sparse -n 16")]
+    calls += [(pipeline_probe, f"--pipe {p} -n 24 --target-s 0.5")
+              for p in ("q1", "rollup", "expand")]
+    calls += [(radix_dma_probe, "")]
+    with phase("query CLIs"), tempfile.TemporaryDirectory() as tmp:
+        rows_path = os.path.join(tmp, "bench_all.jsonl")
+        calls.append((bench_all, f"--scale 1 --out {rows_path}"))
+        for mod, argv in calls:
+            tag = f"{mod.__name__.rsplit('.', 1)[1]} {argv}".strip()
+            reset()
+            t = time.perf_counter()
+            if mod.main(argv.split()) != 0:
+                raise AssertionError(f"{tag} failed")
+            print(f"{tag}: {time.perf_counter() - t:.3f} s")
+            count(tag)
+        with open(rows_path) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+    if sorted(r["metric"] for r in rows) != sorted(BENCH_ALL_CELLS):
+        raise AssertionError(f"bench_all rows: {[r['metric'] for r in rows]}")
+    for r in rows:
+        cell = BENCH_ALL_CELLS[r["metric"]]
+        if cell is not None and cell not in EVENT_MS:
+            raise AssertionError(f"no event ms of the cell {cell!r}")
+        event = EVENT_MS.get(cell)
+        print(json.dumps({
+            "bench_all": r["metric"], "adaptive_ms": r["ms"],
+            "value": r["value"], "unit": r["unit"], "cell": cell,
+            "event_ms": event,
+            "adaptive_over_event": r["ms"] / event if event else None,
+            **({"note": BENCH_ALL_NOTES[r["metric"]]}
+               if r["metric"] in BENCH_ALL_NOTES else {})}))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1542,13 +1557,13 @@ def main() -> int:
     import numpy as np
 
     from cl_ops_tpu_torch import interop
+    from cl_ops_tpu_torch.bench import checks
     from cl_ops_tpu_torch.models import pipeline
     from cl_ops_tpu_torch.ops.exec import bandprobe as bp
     from cl_ops_tpu_torch.ops.exec import dense_agg as da
     from cl_ops_tpu_torch.ops.exec import (filter_compact,
                                            group_aggregate_cols,
                                            group_aggregate_sorted, psort)
-    from cl_ops_tpu_torch.ops.rng import threefry
     from cl_ops_tpu_torch.ops.scan import kernels as sk
     from cl_ops_tpu_torch.ops.scan import segmented as seg
     from cl_ops_tpu_torch.ops.sort import bitonic as bt
@@ -1764,6 +1779,7 @@ def main() -> int:
                                  "pairs")
         kv_ms = cuda_ms(
             lambda: kv_sorter.sort_with_device_data(keys64, vals32), 3)
+        EVENT_MS["kv sort 16M u64 + u32"] = kv_ms
         kv_bytes = bt.abitonic_traffic_bytes(SORT_N, 3)
         print(json.dumps({"kv_sort": "abitonic u64+u32", "n": SORT_N,
                           "ms": kv_ms, "mkeys_s": SORT_N / kv_ms / 1e3,
@@ -1798,15 +1814,11 @@ def main() -> int:
         cnt, f_data, f_pay = filter_compact(d_data, pred, d_pay)
         torch.cuda.synchronize()
         count("filter")
-        mask = h_data < FILTER_THRESHOLD
+        held("filter", checks.filter_rows(
+            h_data, h_data < FILTER_THRESHOLD, cnt, f_data, h_pay, f_pay))
         c = int(cnt)
-        if c != int(mask.sum()):
-            raise AssertionError(f"filter count {c} != {int(mask.sum())}")
-        if not (np.array_equal(interop.to_numpy(f_data)[:c], h_data[mask])
-                and np.array_equal(interop.to_numpy(f_pay)[:c],
-                                   h_pay[mask])):
-            raise AssertionError("filter rows differ from data[mask]")
         filt_ms = cuda_ms(lambda: filter_compact(d_data, pred, d_pay), 3)
+        EVENT_MS["filter 64M u32 + u32 at 10%"] = filt_ms
         # the sort of (rank, data, payload) inside; the mask and the
         # encodings are elementwise passes outside the model
         f_bytes = psort.sort_traffic_bytes(FILTER_N, 3)
@@ -1838,18 +1850,12 @@ def main() -> int:
         torch.cuda.synchronize()
         gb_launches = count("group by")
         check("group by runs scan_carry", gb_launches["scan_carry"] > 0)
-        present = np.nonzero(np.bincount(h_keys, minlength=GROUPBY_G))[0]
-        sums = np.bincount(h_keys, weights=h_vals,
-                           minlength=GROUPBY_G)[present]  # exact: < 2^53
+        held("group by", checks.group_sums(h_keys, h_vals, GROUPBY_G, gk,
+                                           tbl, cnt))
         c = int(cnt)
-        check("group by count", c == len(present))
-        check("group by keys", np.array_equal(
-            interop.to_numpy(gk)[:c], present))
-        check("group by sums", np.array_equal(
-            interop.to_numpy(tbl)[:c].astype(np.float64), sums))
-        check("group by padding", (interop.to_numpy(tbl)[c:] == 0).all())
         del gk, tbl, h_keys, h_vals
         gb_ms = cuda_ms(groupby, 3)
+        EVENT_MS["group by 256M x 1M"] = gb_ms
         device_breakdown("group by 256M x 1M", groupby)
         sort_bytes = psort.sort_traffic_bytes(GROUPBY_N, 2)
         glue = {k: v * GROUPBY_N for k, v in GROUPBY_BYTES_PER_ROW.items()}
@@ -1908,35 +1914,12 @@ def main() -> int:
         torch.cuda.synchronize()
         q_launches = count("q1")
         check("q1 runs scan_carry", q_launches["scan_carry"] > 0)
-        ids = torch.arange(Q1_N, dtype=torch.int32, device=dev)
-        keys, qty, price = (
-            (interop.widen_u32(threefry.random_bits(SEED, ids, c)) % mod)
-            .cpu().numpy() for c, mod in ((0, Q1_G), (1, 1024), (2, 10000)))
-        m = qty < 768
-        k, q, p = keys[m], qty[m], price[m]
-        uniq = np.unique(k)
-        g = len(uniq)
-        cnt = np.bincount(k, minlength=Q1_G)[uniq]
-        mn = np.full(Q1_G, 2 ** 31 - 1, np.int64)
-        mx = np.full(Q1_G, -2 ** 31, np.int64)
-        np.minimum.at(mn, k, q)
-        np.maximum.at(mx, k, p)
-        sq = np.bincount(k, weights=q, minlength=Q1_G)[uniq]
-        sp = np.bincount(k, weights=p, minlength=Q1_G)[uniq]
-        tabs = [interop.to_numpy(t)[:g] for t in q_tabs]
-        check("q1 counts", int(q_cnt) == int(m.sum()) and int(q_gcnt) == g)
-        check("q1 keys", np.array_equal(interop.to_numpy(q_gk)[:g], uniq))
-        for name, got, want in (("sum qty", tabs[0], sq),
-                                ("sum price", tabs[1], sp),
-                                ("min qty", tabs[2], mn[uniq]),
-                                ("max price", tabs[3], mx[uniq]),
-                                ("count", tabs[4], cnt)):
-            check(f"q1 {name}", np.array_equal(got, want))
-        mean32 = sp.astype(np.float32) / cnt.astype(np.float32)
-        check("q1 mean", np.array_equal(tabs[5], mean32) and bool(
-            (np.abs(tabs[5] - sp / cnt) <= 2 ** -23 * sp / cnt).all()))
-        del keys, qty, price, ids, q_gk, q_tabs
+        held("q1", checks.q1(*checks.q1_columns(Q1_N, Q1_G, SEED, dev),
+                             Q1_G, 768, q_cnt, q_gk, q_tabs, q_gcnt))
+        g = int(q_gcnt)
+        del q_gk, q_tabs
         q_ms = cuda_ms(q1, 3)
+        EVENT_MS["q1 16M x 64K"] = q_ms
         device_breakdown("q1 16M x 64K", q1)
         # the (packed key, qty, price) sort, five scans, two segmented scans
         q_bytes = (psort.sort_traffic_bytes(Q1_N, 3)
@@ -1988,6 +1971,7 @@ def main() -> int:
     with phase("profiling and roofline"):
         profiling_cells(dev)
     bench_cli_cells(reset, count)
+    query_cli_cells(reset, count)
 
     for name, n in main_launches.items():
         if n <= 0:
@@ -2034,6 +2018,41 @@ REPLACES = {
     "rank_hist_limb": "cl_ops_tpu/ops/sort/satradix.py:62",
     "dense_agg": "cl_ops_tpu/ops/exec/dense_agg.py:56",
     "chunk_copy": "cl_ops_tpu/ops/sort/dma_scatter.py:47",
+}
+
+# The cell (report()'s name, or EVENT_MS's key for main()'s own cells) of
+# each bench_all metric: the same shape and data, unless a note says how
+# they differ.
+BENCH_ALL_CELLS = {
+    "sort_u32_1M": None,
+    "sort_u64kv_16M": "kv sort 16M u64 + u32",
+    "filter_64M_sel10": "filter 64M u32 + u32 at 10%",
+    "aggregate_256M_1Mgroups": "group by 256M x 1M",
+    **{f"join_probe_16Mx1M{suffix}":
+       f"join probe {JOIN_MID[0]} x {JOIN_MID[1]} {form}"
+       for suffix, form in (("", "restore"), ("_sorted", "sorted_output"),
+                            ("_deferred", "deferred"))},
+    "join_probe_256Mx16M":
+        f"join probe {JOIN_BIG[0]} x {JOIN_BIG[1]} sorted_output deferred",
+    "join_expand_16Mx4": f"join expand {EXPAND_M} x 4",
+    "rollup_16Mx1M": f"rollup_query {ROLLUP_N} x {ROLLUP_DIM} defer",
+    "q1_16Mx64K": "q1 16M x 64K",
+    "window_16Mx64K":
+        f"window {WINDOW_N} x {WINDOW_G} sum + row_number, restore",
+    "window_16Mx64K_sorted":
+        f"window {WINDOW_N} x {WINDOW_G} sum + row_number, sorted_output",
+    "topk_1K_of_64M": f"topk {TOPK_K} of {TOPK_N} u32 + int32",
+    "distinct_64M_1M": f"distinct {DISTINCT_N} u32, {DISTINCT_U} values",
+}
+BENCH_ALL_NOTES = {
+    "sort_u32_1M": "no earlier cell: abitonic autotune=1 at 1M (the "
+                   "single_launch=1 1M cell fixes another geometry)",
+    "sort_u64kv_16M": "the cell sorts at the default geometry and random "
+                      "values; bench_all at autotune=1 with values 0..n-1",
+    "filter_64M_sel10": "the cell carries a u32 payload (a 3-column sort); "
+                        "bench_all filters the column alone (2 columns)",
+    "join_expand_16Mx4": "the cell sorts the build side with abitonic, "
+                         "bench_all with xla (outside the timed call)",
 }
 
 # Device-memory bytes per row of the GROUP BY cell outside the sort, counted
