@@ -33,7 +33,16 @@ ops and three variants, pipeline_probe's q1, rollup and expand,
 radix_dma_probe, and bench_all's twelve configs at full scale), each of
 which must return 0 with every check against numpy passing; each bench_all
 metric's time_adaptive ms is printed beside the event ms of its cell
-earlier in the run. Run from the repository root:
+earlier in the run. Last, the "mesh" phase drives the distributed layer
+(`cl_ops_tpu_torch/parallel/`) on four shards of the one card: dist_sort
+of 256M u32 keys and of 64M u64 keys with u32 values, dist_sort_sample of
+256M uniform and 64M zipf(1.1) keys, dist_scan of 256M u32 into u64 and
+u32, dist_segmented_scan of 64M int32 (add and max), and
+keyed_exchange_replan of 256M uniform keys and of a zipf(1.2) 64M x 4M
+fact and dimension pair; each is checked on the card against torch.sort,
+torch.cumsum or the single-shard operator on the whole array, and the
+phase must launch the seven kernels it runs. Run from the repository
+root:
 
     python3 chip_smoke.py
 
@@ -86,6 +95,17 @@ DMA_N, DMA_BLOCK, DMA_RADIX = 1 << 24, 1 << 16, 16  # radix_dma_probe.py
 RNG_STREAMS, RNG_DRAWS = 262144, 10  # rng_bench.py's defaults (ref gws)
 RNG_BIG_STREAMS, RNG_BIG_DRAWS = 1 << 24, 16  # 2^28 values: BASELINE cfg 4
 RNG_CHECK_STREAMS = 4096
+MESH_SHARDS = 4             # make_mesh(devices=["cuda:0"] * 4)
+MESH_SORT_N = 1 << 28       # BASELINE config 4's 256M rows: 4 x 64M
+MESH_KV_N = 1 << 26         # BASELINE config 2's 16M KV rows a shard
+MESH_SEG_N = 1 << 26
+MESH_KEYS = 1 << 20         # the uniform exchange: 1M distinct keys
+# BASELINE config 5's Zipf fact x dim, cut from 1B x 100M to fit the
+# script's time on one card
+MESH_FACT, MESH_DIM = 1 << 26, 1 << 22
+MESH_CAP = 1.25             # starting bucket capacity over the uniform share
+MESH_KERNELS = ("block_sort", "multi_stage", "pair_cross", "block_merge",
+                "scan_block", "scan_block_wide", "seg_scan_carry")
 
 
 def phase(name):
@@ -1548,6 +1568,280 @@ def query_cli_cells(reset, count):
                if r["metric"] in BENCH_ALL_NOTES else {})}))
 
 
+def mesh_cells(dev, reset, count):
+    """The distributed layer on MESH_SHARDS shards of one card
+    (`make_mesh(devices=[dev] * 4)`): each cell driven once between reset()
+    and count(), checked on the card against torch.sort / torch.cumsum of
+    the whole array or the port's single-shard operator, then timed with
+    CUDA events and traced once."""
+    import numpy as np
+    import torch
+
+    from cl_ops_tpu_torch import interop, parallel
+    from cl_ops_tpu_torch.ops.scan import segmented_scan_1d
+    from cl_ops_tpu_torch.ops.scan import kernels as sk
+    from cl_ops_tpu_torch.ops.sort import keys as keymod
+    from cl_ops_tpu_torch.parallel import mesh as pm
+    from cl_ops_tpu_torch.parallel import splitters as psp
+
+    p = MESH_SHARDS
+    mesh = parallel.make_mesh(devices=[dev] * p)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    min64 = -(1 << 63)
+
+    def check(name, ok):
+        if not ok:
+            raise AssertionError(name)
+
+    def rand_i32(n, lo=-2 ** 31, hi=2 ** 31):
+        return torch.randint(lo, hi, (n,), dtype=torch.int32, device=dev,
+                             generator=gen)
+
+    def zipf(a, n, seed):
+        """numpy's zipf(a), n draws in eight threads, mod 2^32 as u32."""
+        seqs = np.random.SeedSequence(seed).spawn(8)
+        with ThreadPoolExecutor(8) as pool:
+            parts = list(pool.map(lambda s: np.random.default_rng(s).zipf(
+                a, n // 8).astype(np.uint32), seqs))
+        return interop.to_torch(np.concatenate(parts), dev)
+
+    def limb(t):
+        """u32 or u64 keys as int32 / int64 of the same order."""
+        if t.dtype == torch.uint64:
+            return t.view(torch.int64) ^ min64
+        return keymod.to_limbs(t)[0]
+
+    def counting(name, calls, keep=False):
+        """Wrap psp.<name> to record each call's first argument's length
+        (and its result with keep=True); returns the restore function."""
+        orig = getattr(psp, name)
+
+        def wrapped(x, *a, **kw):
+            out = orig(x, *a, **kw)
+            calls.append((x.shape[0], out if keep else None))
+            return out
+        setattr(psp, name, wrapped)
+        return lambda: setattr(psp, name, orig)
+
+    seen = {}  # launches of each kernel over the phase's driven calls
+
+    def drive(tag, fn):
+        reset()
+        out = fn()
+        torch.cuda.synchronize()
+        now = count(tag)
+        for k, v in now.items():
+            seen[k] = seen.get(k, 0) + v
+        return out, now
+
+    n = MESH_SORT_N
+    with phase(f"mesh dist_sort {n} u32, {p} shards"):
+        x = rand_i32(n).view(torch.uint32)
+        xs = pm.put_sharded(x, mesh)
+
+        def fn():
+            return parallel.dist_sort(xs, mesh)
+        out, launches = drive("mesh dist_sort u32", fn)
+        check("dist_sort u32 equals torch.sort",
+              torch.equal(limb(out.cat()), torch.sort(limb(x)).values))
+        del out
+        report(f"mesh dist_sort {n} u32", fn, 3, mesh_sort_bytes(n, 1),
+               launches, n)
+        del x, xs
+
+    n = MESH_KV_N
+    with phase(f"mesh dist_sort {n} u64 + u32 values, {p} shards"):
+        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (n,), dtype=torch.int64,
+                          device=dev, generator=gen).view(torch.uint64)
+        iota = torch.arange(n, dtype=torch.int32, device=dev)
+        xs = pm.put_sharded(x, mesh)
+        vs = pm.put_sharded(iota.view(torch.uint32), mesh)
+
+        def fn():
+            return parallel.dist_sort(xs, mesh, values=vs)
+        (out, vout), launches = drive("mesh dist_sort kv", fn)
+        got, perm = out.cat(), vout.cat().view(torch.int32)
+        check("dist_sort kv keys equal torch.sort",
+              torch.equal(limb(got), torch.sort(limb(x)).values))
+        check("dist_sort kv values a permutation",
+              torch.equal(torch.sort(perm).values, iota))
+        check("dist_sort kv x[values] == keys",
+              torch.equal(x.view(torch.int64)[perm], got.view(torch.int64)))
+        del out, vout, got, perm
+        # the sort of (hi, lo, iota); all_gather's p copies of keys and
+        # values; the gathers (index read, key and value read and written)
+        report(f"mesh dist_sort {n} u64 + u32", fn, 3,
+               mesh_sort_bytes(n, 3) + p * n * 12 + n * 28, launches, n)
+        del x, iota, xs, vs
+
+    for tag, n, make, kw in (
+            ("uniform u32", MESH_SORT_N, lambda n: rand_i32(n).view(
+                torch.uint32), {}),
+            # 4 samples a shard and 1.25x headroom: the first splitters
+            # are too coarse for this skew, so the sample is taken again
+            ("zipf(1.1) u32", MESH_KV_N, lambda n: zipf(1.1, n, SEED + 1),
+             {"capacity_factor": 1.25, "samples_per_chip": 4})):
+        with phase(f"mesh dist_sort_sample {n} {tag}, {p} shards"):
+            x = make(n)
+            xs = pm.put_sharded(x, mesh)
+            calls = []
+            restore = counting("range_partition_exchange", calls)
+            try:
+                def fn(kw=kw):
+                    return parallel.dist_sort_sample(xs, mesh, **kw)
+                (totals, buf, dropped), launches = drive(
+                    f"mesh dist_sort_sample {tag}", fn)
+            finally:
+                restore()
+            tot = totals.numpy().tolist()
+            check(f"sample sort {tag}: no row dropped",
+                  pm.replicated_sum_int(dropped, mesh) == 0)
+            got = torch.cat([b[:t] for b, t in zip(buf.shards, tot)])
+            check(f"sample sort {tag} equals torch.sort",
+                  torch.equal(limb(got), torch.sort(limb(x)).values))
+            del totals, buf, dropped, got
+            # the splitters' sample is tiny: one exchange of the keys, then
+            # each shard's sort of its valid rows (read and write once)
+            report(f"mesh dist_sort_sample {n} {tag}", fn, 3,
+                   len(calls) * n * 8 + n * 8, launches, n,
+                   attempts=len(calls), totals=tot)
+            del x, xs
+
+    n = MESH_SORT_N
+    with phase(f"mesh dist_scan {n} u32, {p} shards"):
+        x = rand_i32(n).view(torch.uint32)
+        xs = pm.put_sharded(x, mesh)
+        wide = interop.widen_u32(x)
+        incl = torch.cumsum(wide, 0)
+        for sd, exclusive, want in (
+                (torch.uint64, True, lambda: incl - wide),
+                (torch.uint32, False, lambda: incl & 0xFFFFFFFF)):
+            name = f"mesh dist_scan {n} u32 -> {str(sd)[6:]} " \
+                   f"{'exclusive' if exclusive else 'inclusive'}"
+
+            def fn(sd=sd, exclusive=exclusive):
+                return parallel.dist_scan(xs, mesh, sum_dtype=sd,
+                                          exclusive=exclusive)
+            out, launches = drive(name, fn)
+            got = out.cat()
+            got = got.view(torch.int64) if sd == torch.uint64 \
+                else interop.widen_u32(got)
+            check(f"{name} equals torch.cumsum mod 2^bits",
+                  torch.equal(got, want()))
+            del out, got
+            report(name, fn, 3, sk.scan_traffic_bytes(
+                n, sd, single_pass=False, elem_dtype=torch.uint32),
+                launches, n)
+        del x, xs, wide, incl
+
+    n = MESH_SEG_N
+    with phase(f"mesh dist_segmented_scan {n} int32, {p} shards"):
+        x = rand_i32(n)
+        shard = n // p
+        flags = (torch.rand(n, device=dev, generator=gen)
+                 < 1 / 64).to(torch.int32)  # about 1M runs
+        flags[shard::shard] = 1
+        # one run spans the boundary between shards 1 and 2
+        flags[2 * shard - (1 << 16):2 * shard + (1 << 16)] = 0
+        xs, fs = pm.put_sharded(x, mesh), pm.put_sharded(flags, mesh)
+        runs = int(flags.sum()) + int(flags[0] == 0)
+        for op, exclusive in (("add", True), ("max", False)):
+            name = f"mesh dist_segmented_scan {n} int32 {op} " \
+                   f"{'exclusive' if exclusive else 'inclusive'}"
+
+            def fn(op=op, exclusive=exclusive):
+                return parallel.dist_segmented_scan(xs, fs, mesh, op=op,
+                                                    exclusive=exclusive)
+            out, launches = drive(name, fn)
+            check(f"{name} equals segmented_scan_1d of the whole array",
+                  torch.equal(out.cat(), segmented_scan_1d(
+                      x, flags, op=op, exclusive=exclusive)))
+            del out
+            report(name, fn, 3, 12 * n, launches, n, runs=runs)
+        del x, flags, xs, fs
+
+    def check_exchange(tag, res, keys, plan):
+        """Every row of `keys` lands exactly once (its row-index payload),
+        with its own key, on the shard that plan(keys) names."""
+        counts, out_k, out_i = res
+        cap = out_k.shards[0].numel() // p
+        got_k, got_i = [], []
+        for d in range(p):
+            c = counts.shards[d].tolist()
+            k = torch.cat([out_k.shards[d][s * cap:s * cap + c[s]]
+                           for s in range(p)])
+            check(f"{tag}: rows on shard {d} belong there",
+                  bool((plan(k) == d).all()))
+            got_k.append(k)
+            got_i.append(torch.cat([out_i.shards[d][s * cap:s * cap + c[s]]
+                                    for s in range(p)]))
+        got_k, got_i = torch.cat(got_k), torch.cat(got_i)
+        check(f"{tag}: every row exactly once", torch.equal(
+            torch.sort(got_i).values, torch.arange(
+                keys.numel(), dtype=torch.int32, device=dev)))
+        check(f"{tag}: keys travel with their rows", torch.equal(
+            limb(keys)[got_i], limb(got_k)))
+
+    def exchange_cell(tag, sides, caps, max_replan):
+        """Drive keyed_exchange_replan on (keys, row index) sides; check
+        every side against the final plan and report the attempts."""
+        shs = [(pm.put_sharded(k, mesh), (pm.put_sharded(torch.arange(
+            k.numel(), dtype=torch.int32, device=dev), mesh),))
+            for k in sides]
+        exchanges, plans = [], []
+        restore = [counting("partition_exchange", exchanges),
+                   counting("plan_splitters", plans, keep=True)]
+        try:
+            def fn():
+                return parallel.keyed_exchange_replan(
+                    shs, mesh, capacities=caps, max_replan=max_replan)
+            (results, final), launches = drive(f"mesh exchange {tag}", fn)
+        finally:
+            for r in restore:
+                r()
+        if plans:
+            spl = interop.widen_u32(plans[-1][1].shards[0])
+
+            def plan(k):
+                return torch.searchsorted(spl, interop.widen_u32(k))
+        else:
+            def plan(k):
+                return psp.hash_partition_ids(k, p)
+        for i, (k, res) in enumerate(zip(sides, results)):
+            check_exchange(f"exchange {tag} side {i}", res, k, plan)
+        del results
+        rows = sum(k.numel() for k in sides)
+        attempts = [sum(1 for m, _ in exchanges if m == k.numel())
+                    for k in sides]
+        # each side's keys and row index read once and written once
+        report(f"mesh exchange {tag}", fn, 3, rows * 16, launches, rows,
+               exchanges_per_side=attempts, range_plans=len(plans),
+               capacities=list(caps), final_capacities=list(final))
+
+    n = MESH_SORT_N
+    with phase(f"mesh keyed_exchange_replan {n} keys, {MESH_KEYS} values"):
+        keys = rand_i32(n, 0, MESH_KEYS).view(torch.uint32)
+        exchange_cell(f"{n} uniform, {MESH_KEYS} values", [keys],
+                      (int(MESH_CAP * n / p / p),), 3)
+        del keys
+
+    nf, nd = MESH_FACT, MESH_DIM
+    with phase(f"mesh keyed_exchange_replan zipf(1.2) {nf} x {nd}"):
+        fact = zipf(1.2, nf, SEED + 2)
+        fact = (interop.widen_u32(fact) % nd).to(torch.int32).view(
+            torch.uint32)
+        dim = torch.randperm(nd, dtype=torch.int32, device=dev,
+                             generator=gen).view(torch.uint32)
+        exchange_cell(f"zipf(1.2) {nf} x {nd}", [fact, dim],
+                      (int(MESH_CAP * nf / p / p),
+                       int(MESH_CAP * nd / p / p)), 8)
+        del fact, dim
+    print(json.dumps({"mesh_phase_launches": seen}))
+    for name in MESH_KERNELS:
+        check(f"the mesh phase launches {name}", seen.get(name, 0) > 0)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1972,6 +2266,7 @@ def main() -> int:
         profiling_cells(dev)
     bench_cli_cells(reset, count)
     query_cli_cells(reset, count)
+    mesh_cells(dev, reset, count)
 
     for name, n in main_launches.items():
         if n <= 0:
@@ -2098,6 +2393,23 @@ DISTINCT_BYTES_PER_ROW = {
     "is_end (concats, not, or, and)": 12,
     "end flags' sort key (flag * n + position)": 29,
 }
+
+
+def mesh_sort_bytes(n, n_cols, shards=MESH_SHARDS):
+    """Device-memory bytes of dist_sort_i32_cols' kernels and exchanges:
+    each shard's fused sort (with its padded copy), and per hypercube step
+    one bitonic merge of each shard and its ppermute (every column read
+    and written once). The flip and the select are not counted."""
+    from cl_ops_tpu_torch.ops.sort import bitonic as bt
+    from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
+    from cl_ops_tpu_torch.utils.bits import log2_floor, nlpo2
+    padded = nlpo2(n // shards)
+    lg = log2_floor(shards)
+    _, merge = bt.resolve_geometry(padded, n_cols)
+    step = bk.merge_traffic_bytes(padded, n_cols, merge) \
+        + 8 * padded * n_cols
+    return shards * (bt.abitonic_traffic_bytes(n // shards, n_cols)
+                     + lg * (lg + 1) // 2 * step)
 
 
 def dense_read_bytes(n, n_cols, masked):

@@ -25,7 +25,9 @@ that start one element into their tensors, fewer rows than a vector, and
 one column feeding count, sum, min and max;
 chunk_copy with 1, 3 and 9 arrays, a partial last chunk and
 whole-sentinel slots; the dense GROUP BY, window functions, top-k and
-DISTINCT on the card against their CPU results. Every CUDA call checks that
+DISTINCT on the card against their CPU results; the distributed layer on
+four shards of one card against four CPU shards, and its collectives
+copying between positions on one device. Every CUDA call checks that
 the kernel's launch counter moved, so no CUDA tensor reaches a plain
 version. Skips without CUDA. On a machine without JAX
 run it with `python -m pytest --noconftest tests/test_torch_cuda.py`.
@@ -1132,3 +1134,153 @@ def test_stream_ceiling_on_card(cuda, tmp_path, monkeypatch):
         assert roofline.stream_ceiling_gbs(mb=256) == gbs  # from the file
     finally:
         roofline.stream_ceiling_gbs.cache_clear()
+
+
+# --- the distributed layer: 4 shards of one card against 4 CPU shards -------
+
+MESH_N = 4 * (1 << 16)
+
+
+def _mesh_pair(cuda):
+    from cl_ops_tpu_torch import parallel
+    return (parallel.make_mesh(devices=[cuda] * 4),
+            parallel.make_mesh(devices=["cpu"] * 4))
+
+
+def _same_sharded(card, host):
+    """Two Shardeds (or tuples of them) equal bit for bit."""
+    if isinstance(card, tuple):
+        assert len(card) == len(host)
+        for c, h in zip(card, host):
+            _same_sharded(c, h)
+        return
+    assert all(s.device.type == "cuda" for s in card.shards)
+    np.testing.assert_array_equal(card.numpy(), host.numpy())
+
+
+def test_mesh_collectives_copy_on_one_card(cuda):
+    """A shard received from a position on the same card is a copy: sorting
+    the sender in place (as the hypercube's merges do) leaves it intact."""
+    card, _ = _mesh_pair(cuda)
+    per = [_cols(1 << 12, 1, 90 + i)[0].to(cuda) for i in range(4)]
+    before = [t.clone().cpu() for t in per]
+    got = card.ppermute(per, [(i, i ^ 1) for i in range(4)])
+    gathered = card.all_gather(per)
+    a2a = card.all_to_all([t.view(4, -1) for t in per])
+    for t in per:
+        bk.bitonic_sort_2d([t], block_elems=1024, merge_elems=4096)
+    torch.cuda.synchronize()
+    for i in range(4):
+        assert torch.equal(got[i].cpu(), before[i ^ 1])
+    assert torch.equal(gathered[2].cpu(), torch.cat(before))
+    assert torch.equal(a2a[1].cpu(), torch.cat(
+        [b.view(4, -1)[1] for b in before]))
+
+
+@pytest.mark.parametrize("dtype,kw", [
+    (np.uint32, {}), (np.int32, {"ascending": False}), (np.uint64, {}),
+    (np.float32, {})])
+def test_dist_sort_on_card_matches_cpu(cuda, dtype, kw):
+    """The hypercube sort on 4 shards of one card: every exchange's partner
+    is on the same device."""
+    from cl_ops_tpu_torch import parallel
+    card, host = _mesh_pair(cuda)
+    rng = np.random.default_rng(91)
+    x = rng.integers(0, 2 ** 64, MESH_N, dtype=np.uint64).view(np.uint64)
+    x = x.astype(dtype) if dtype != np.float32 else \
+        rng.standard_normal(MESH_N).astype(np.float32)
+    bk.reset_launches()
+    got = parallel.dist_sort(x, card, **kw)
+    torch.cuda.synchronize()
+    assert all(bk.launches[k] > 0 for k in bk.FUSED)
+    _same_sharded(got, parallel.dist_sort(x, host, **kw))
+    assert np.array_equal(got.numpy().view(f"u{x.itemsize}"),
+                          np.sort(x).view(f"u{x.itemsize}")
+                          if "ascending" not in kw else
+                          np.sort(x)[::-1].view(f"u{x.itemsize}"))
+
+
+def test_dist_sort_kv_and_cols_on_card_match_cpu(cuda):
+    from cl_ops_tpu_torch import parallel
+    card, host = _mesh_pair(cuda)
+    rng = np.random.default_rng(92)
+    keys = rng.integers(0, 1000, MESH_N).astype(np.uint32)
+    vals = np.arange(MESH_N, dtype=np.int32)
+    _same_sharded(parallel.dist_sort(keys, card, values=vals),
+          parallel.dist_sort(keys, host, values=vals))
+    cols = tuple(rng.integers(-3, 3, 4 * 1000).astype(np.int32)
+                 for _ in range(3))
+    _same_sharded(parallel.dist_sort_i32_cols(cols, card),
+          parallel.dist_sort_i32_cols(cols, host))
+
+
+@pytest.mark.parametrize("sd,exclusive,kernel", [
+    (np.uint64, True, "scan_block_wide"), (np.uint32, False, "scan_block")])
+def test_dist_scan_on_card_matches_cpu(cuda, sd, exclusive, kernel):
+    from cl_ops_tpu_torch import parallel
+    card, host = _mesh_pair(cuda)
+    x = np.random.default_rng(93).integers(0, 2 ** 32, MESH_N).astype(
+        np.uint32)
+    sk.reset_launches()
+    got = parallel.dist_scan(x, card, sum_dtype=sd, exclusive=exclusive)
+    torch.cuda.synchronize()
+    assert sk.launches[kernel] == 4
+    _same_sharded(got, parallel.dist_scan(x, host, sum_dtype=sd,
+                                  exclusive=exclusive))
+
+
+@pytest.mark.parametrize("op,exclusive", [("add", True), ("max", False),
+                                          ("min", False)])
+def test_dist_segmented_scan_on_card_matches_cpu(cuda, op, exclusive):
+    from cl_ops_tpu_torch import parallel
+    card, host = _mesh_pair(cuda)
+    rng = np.random.default_rng(94)
+    x = rng.integers(-2 ** 31, 2 ** 31, MESH_N).astype(np.int32)
+    flags = (rng.random(MESH_N) < 1 / 500).astype(np.int32)
+    flags[MESH_N // 4] = 1
+    flags[MESH_N // 2 - 100:MESH_N // 2 + 100] = 0
+    seg.reset_launches()
+    got = parallel.dist_segmented_scan(x, flags, card, op=op,
+                                       exclusive=exclusive)
+    torch.cuda.synchronize()
+    assert seg.launches["seg_scan_carry"] == 4
+    _same_sharded(got, parallel.dist_segmented_scan(x, flags, host, op=op,
+                                            exclusive=exclusive))
+
+
+def test_exchanges_on_card_match_cpu(cuda):
+    """partition_exchange, plan_splitters, dist_sort_sample and the replan
+    escalation (hash, range, re-sample, capacity doubling) on the card."""
+    from cl_ops_tpu_torch import parallel
+    card, host = _mesh_pair(cuda)
+    rng = np.random.default_rng(95)
+    data = rng.integers(0, 2 ** 32, MESH_N).astype(np.uint32)
+    pid = (data % 4).astype(np.int32)
+    for mesh_out in zip(*(parallel.partition_exchange(
+            data, pid, m, capacity=MESH_N // 16 + 99, extra_cols=(data,))
+            for m in (card, host))):
+        _same_sharded(*mesh_out)
+    zipf = (rng.zipf(1.2, MESH_N) % (1 << 20)).astype(np.uint32)
+    _same_sharded(parallel.plan_splitters(zipf, card),
+          parallel.plan_splitters(zipf, host))
+    got = parallel.dist_sort_sample(zipf, card, capacity_factor=1.25,
+                                    samples_per_chip=4)
+    want = parallel.dist_sort_sample(zipf, host, capacity_factor=1.25,
+                                     samples_per_chip=4)
+    _same_sharded(got[0], want[0])
+    _same_sharded(got[2], want[2])
+    tot = want[0].numpy()
+    cap = len(want[1].numpy()) // 4
+    for c in range(4):
+        np.testing.assert_array_equal(
+            got[1].numpy()[c * cap:c * cap + tot[c]],
+            want[1].numpy()[c * cap:c * cap + tot[c]])
+    dim = rng.permutation(1 << 14).astype(np.uint32)
+    fact = zipf % np.uint32(1 << 14)
+    sides = [(fact, (np.arange(MESH_N, dtype=np.int32),)), (dim, ())]
+    caps = (MESH_N // 16 * 5 // 4, (1 << 14) // 16 * 5 // 4)
+    (cres, ccaps), (hres, hcaps) = (parallel.keyed_exchange_replan(
+        sides, m, capacities=caps, max_replan=8) for m in (card, host))
+    assert ccaps == hcaps and ccaps[1] > caps[1]
+    for c, h in zip(cres, hres):
+        _same_sharded(tuple(c), tuple(h))
