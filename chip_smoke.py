@@ -41,8 +41,20 @@ u32, dist_segmented_scan of 64M int32 (add and max), and
 keyed_exchange_replan of 256M uniform keys and of a zipf(1.2) 64M x 4M
 fact and dimension pair; each is checked on the card against torch.sort,
 torch.cumsum or the single-shard operator on the whole array, and the
-phase must launch the seven kernels it runs. Run from the repository
-root:
+phase must launch the seven kernels it runs. The "mesh ops" phase drives
+the distributed operators on the same four shards: dist_group_aggregate
+of 256M rows into 1M groups and dist_group_aggregate_cols of 64M rows into
+64K groups, dist_hash_join of 256M probes against 16M (check "replan" and
+"defer") and of the zipf(1.2) 64M x 4M pair (re-planned),
+dist_hash_join_expand of 16M probes x 4 matches, dist_window_cols over
+64M rows in 64K partitions in both output forms, dist_top_k of 1K of 256M
+(smallest and largest) and dist_distinct of 256M rows with 1M values, each
+checked against torch or the single-card operator; it must launch the
+seven kernels of its list. Last, the "multiproc" phase starts two worker
+processes (`python -m cl_ops_tpu_torch.bench.mp_worker`), each holding two
+positions of the card in one mesh across processes over gloo, which run
+tests/mp_worker.py's list at 2^24 rows and check their rows against
+numpy. Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -106,6 +118,11 @@ MESH_FACT, MESH_DIM = 1 << 26, 1 << 22
 MESH_CAP = 1.25             # starting bucket capacity over the uniform share
 MESH_KERNELS = ("block_sort", "multi_stage", "pair_cross", "block_merge",
                 "scan_block", "scan_block_wide", "seg_scan_carry")
+MESH_COLS_N, MESH_COLS_G = 1 << 26, 1 << 16  # the mesh ops' 64M x 64K cells
+MESH_OPS_KERNELS = ("block_sort", "multi_stage", "pair_cross", "block_merge",
+                    "probe_band", "scan_carry", "seg_scan_carry")
+MP_ROWS = 1 << 24           # the multiproc phase: tests/mp_worker.py's list
+MP_WAIT_S = 400             # each worker's cap
 
 
 def phase(name):
@@ -1568,13 +1585,35 @@ def query_cli_cells(reset, count):
                if r["metric"] in BENCH_ALL_NOTES else {})}))
 
 
+def zipf_u32(a, n, seed):
+    """numpy's zipf(a), n draws in eight threads, mod 2^32 as u32."""
+    import numpy as np
+    seqs = np.random.SeedSequence(seed).spawn(8)
+    with ThreadPoolExecutor(8) as pool:
+        parts = list(pool.map(lambda s: np.random.default_rng(s).zipf(
+            a, n // 8).astype(np.uint32), seqs))
+    return np.concatenate(parts)
+
+
+def counting(module, name, calls, keep=False):
+    """Wrap module.<name> to record each call's first argument's length
+    (and its result with keep=True); returns the restore function."""
+    orig = getattr(module, name)
+
+    def wrapped(x, *a, **kw):
+        out = orig(x, *a, **kw)
+        calls.append((x.shape[0], out if keep else None))
+        return out
+    setattr(module, name, wrapped)
+    return lambda: setattr(module, name, orig)
+
+
 def mesh_cells(dev, reset, count):
     """The distributed layer on MESH_SHARDS shards of one card
     (`make_mesh(devices=[dev] * 4)`): each cell driven once between reset()
     and count(), checked on the card against torch.sort / torch.cumsum of
     the whole array or the port's single-shard operator, then timed with
     CUDA events and traced once."""
-    import numpy as np
     import torch
 
     from cl_ops_tpu_torch import interop, parallel
@@ -1599,30 +1638,13 @@ def mesh_cells(dev, reset, count):
                              generator=gen)
 
     def zipf(a, n, seed):
-        """numpy's zipf(a), n draws in eight threads, mod 2^32 as u32."""
-        seqs = np.random.SeedSequence(seed).spawn(8)
-        with ThreadPoolExecutor(8) as pool:
-            parts = list(pool.map(lambda s: np.random.default_rng(s).zipf(
-                a, n // 8).astype(np.uint32), seqs))
-        return interop.to_torch(np.concatenate(parts), dev)
+        return interop.to_torch(zipf_u32(a, n, seed), dev)
 
     def limb(t):
         """u32 or u64 keys as int32 / int64 of the same order."""
         if t.dtype == torch.uint64:
             return t.view(torch.int64) ^ min64
         return keymod.to_limbs(t)[0]
-
-    def counting(name, calls, keep=False):
-        """Wrap psp.<name> to record each call's first argument's length
-        (and its result with keep=True); returns the restore function."""
-        orig = getattr(psp, name)
-
-        def wrapped(x, *a, **kw):
-            out = orig(x, *a, **kw)
-            calls.append((x.shape[0], out if keep else None))
-            return out
-        setattr(psp, name, wrapped)
-        return lambda: setattr(psp, name, orig)
 
     seen = {}  # launches of each kernel over the phase's driven calls
 
@@ -1686,7 +1708,7 @@ def mesh_cells(dev, reset, count):
             x = make(n)
             xs = pm.put_sharded(x, mesh)
             calls = []
-            restore = counting("range_partition_exchange", calls)
+            restore = counting(psp, "range_partition_exchange", calls)
             try:
                 def fn(kw=kw):
                     return parallel.dist_sort_sample(xs, mesh, **kw)
@@ -1790,8 +1812,8 @@ def mesh_cells(dev, reset, count):
             k.numel(), dtype=torch.int32, device=dev), mesh),))
             for k in sides]
         exchanges, plans = [], []
-        restore = [counting("partition_exchange", exchanges),
-                   counting("plan_splitters", plans, keep=True)]
+        restore = [counting(psp, "partition_exchange", exchanges),
+                   counting(psp, "plan_splitters", plans, keep=True)]
         try:
             def fn():
                 return parallel.keyed_exchange_replan(
@@ -1841,6 +1863,340 @@ def mesh_cells(dev, reset, count):
     for name in MESH_KERNELS:
         check(f"the mesh phase launches {name}", seen.get(name, 0) > 0)
 
+
+def mesh_ops_cells(dev, reset, count):
+    """The distributed operators on MESH_SHARDS shards of one card: each
+    cell driven once between reset() and count(), checked on the card
+    against torch (`bincount`, `index_add_`, a stable `torch.sort`,
+    `torch.unique`) or the port's single-card operator on the whole array,
+    then timed with CUDA events and traced once. Capacities are MESH_CAP
+    times the even share of a bucket. Inputs come from a torch.Generator
+    seeded with SEED + 3 (and numpy's zipf, seeded SEED + 4)."""
+    import torch
+
+    from cl_ops_tpu_torch import interop, parallel
+    from cl_ops_tpu_torch.ops.exec import (group_aggregate_cols, psort,
+                                           window_cols)
+    from cl_ops_tpu_torch.parallel import mesh as pm
+    from cl_ops_tpu_torch.parallel import splitters as psp
+
+    p = MESH_SHARDS
+    mesh = parallel.make_mesh(devices=[dev] * p)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+
+    def check(name, ok):
+        if not ok:
+            raise AssertionError(name)
+
+    def rand(n, lo, hi):
+        return torch.randint(lo, hi, (n,), dtype=torch.int32, device=dev,
+                             generator=gen)
+
+    def cap(n):
+        return int(MESH_CAP * n / p / p)
+
+    seen = {}
+
+    def drive(tag, fn):
+        reset()
+        out = fn()
+        torch.cuda.synchronize()
+        now = count(tag)
+        for k, v in now.items():
+            seen[k] = seen.get(k, 0) + v
+        return out, now
+
+    def rows(s, counts):
+        """Each shard's first counts[i] rows, concatenated."""
+        return torch.cat([interop.signed_view(t)[:int(c)]
+                          for t, c in zip(s.shards, counts)])
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # BASELINE config 4 over the mesh: bench_all.py:133-141's keys < 2^20
+    # and values < 100, 2^20 groups a position
+    n, g = MESH_SORT_N, GROUPBY_G
+    tag = f"mesh dist_group_aggregate {n} x {g}, sum"
+    with phase(tag):
+        keys = rand(n, 0, g)
+        vals = rand(n, 0, 100)
+        ks, vs = pm.put_sharded(keys.view(torch.uint32), mesh), \
+            pm.put_sharded(vals, mesh)
+        c = cap(n)
+
+        def fn():
+            return parallel.dist_group_aggregate(ks, vs, mesh,
+                                                 num_groups=g, capacity=c)
+        (gk, table, cnt), launches = drive(tag, fn)
+        kl = keys.long()
+        present = torch.nonzero(torch.bincount(kl, minlength=g))[:, 0]
+        sums = torch.zeros(g, dtype=torch.int64, device=dev).index_add_(
+            0, kl, vals.long())
+        counts = cnt.numpy().tolist()
+        got_k, got_s = rows(gk, counts).long(), rows(table, counts).long()
+        order = torch.sort(got_k).indices
+        check(f"{tag}: count", sum(counts) == present.numel())
+        check(f"{tag}: keys", torch.equal(got_k[order], present))
+        check(f"{tag}: sums", torch.equal(got_s[order], sums[present]))
+        del gk, table, cnt, got_k, got_s, kl, sums, present
+        report(tag, fn, 3, mesh_groupby_bytes(n, c, 2), launches, n,
+               groups=counts)
+        del keys, vals, ks, vs
+        free()
+
+    n, g = MESH_COLS_N, MESH_COLS_G
+    tag = f"mesh dist_group_aggregate_cols {n} x {g}, sum min count"
+    with phase(tag):
+        keys = rand(n, 0, g)
+        vals = rand(n, -(1 << 20), 1 << 20)
+        ks, vs = pm.put_sharded(keys, mesh), pm.put_sharded(vals, mesh)
+        c = cap(n)
+        aggs = ("sum", "min", "count")
+
+        def fn():
+            return parallel.dist_group_aggregate_cols(
+                ks, (vs, vs, vs), aggs, mesh, num_groups=g, capacity=c)
+        (gk, tables, cnt), launches = drive(tag, fn)
+        wk, wt, wc = group_aggregate_cols(keys, (vals, vals, vals), aggs,
+                                          num_groups=g)
+        counts = cnt.numpy().tolist()
+        got_k = rows(gk, counts)
+        order = torch.sort(got_k).indices
+        check(f"{tag}: count", sum(counts) == int(wc))
+        check(f"{tag}: keys", torch.equal(got_k[order], wk[:int(wc)]))
+        for a, t, w in zip(aggs, tables, wt):
+            check(f"{tag}: {a}", torch.equal(rows(t, counts)[order],
+                                              w[:int(wc)]))
+        del gk, tables, cnt, wk, wt, got_k
+        report(tag, fn, 3, mesh_groupby_bytes(n, c, 2), launches, n)
+        del keys, vals, ks, vs
+        free()
+
+    def join_cell(tag, fact, dim, reps, **kw):
+        """dist_hash_join of `fact` against `dim` (values dim * 7 + 1):
+        every probe is found with its formula value; returns the exchanges
+        per side and the range plans."""
+        fs = pm.put_sharded(fact, mesh)
+        ds = pm.put_sharded(dim, mesh)
+        dvs = pm.put_sharded((dim.view(torch.int32) * 7 + 1).view(
+            torch.uint32), mesh)
+        caps = dict(capacity_build=cap(dim.numel()),
+                    capacity_probe=cap(fact.numel()))
+        exchanges, plans = [], []
+        restore = [counting(psp, "partition_exchange", exchanges),
+                   counting(psp, "plan_splitters", plans)]
+        try:
+            def fn():
+                return parallel.dist_hash_join(ds, dvs, fs, mesh, **caps,
+                                               max_replan=8, **kw)
+            out, launches = drive(tag, fn)
+        finally:
+            for r in restore:
+                r()
+        found, vals = out[:2]
+        check(f"{tag}: every probe found",
+              all(bool(f.all()) for f in found.shards))
+        check(f"{tag}: values", all(torch.equal(
+            interop.widen_u32(v), (interop.widen_u32(p_) * 7 + 1))
+            for v, p_ in zip(vals.shards, fs.shards)))
+        if len(out) > 2:
+            check(f"{tag}: dropped counters 0", all(
+                pm.replicated_sum_int(d, mesh) == 0 for d in out[2]))
+        del out, found, vals
+        attempts = [sum(1 for m, _ in exchanges if m == s.numel())
+                    for s in (dim, fact)]
+        report(tag, fn, reps, mesh_join_bytes(
+            fact.numel(), dim.numel(), caps["capacity_build"],
+            caps["capacity_probe"], merge=kw.get("check") == "defer"),
+            launches, fact.numel(), exchanges_per_side=attempts,
+            range_plans=len(plans), capacities=caps)
+
+    # bench_all.py:194-206 (config 12): a shuffled arange(2^24) dimension,
+    # values dim * 7 + 1, uniform probes
+    n, nd = JOIN_BIG
+    with phase(f"mesh dist_hash_join {n} x {nd}, unique build"):
+        dim = torch.randperm(nd, dtype=torch.int32, device=dev,
+                             generator=gen).view(torch.uint32)
+        fact = rand(n, 0, nd).view(torch.uint32)
+        for check_, reps in (("replan", 3), ("defer", 2)):
+            join_cell(f"mesh dist_hash_join {n} x {nd}, {check_}", fact, dim,
+                      reps, check=check_)
+            free()
+        del dim, fact
+        free()
+
+    # PR 14's cut of BASELINE config 5: zipf(1.2) fact keys mod 4M
+    nf, nd = MESH_FACT, MESH_DIM
+    with phase(f"mesh dist_hash_join zipf(1.2) {nf} x {nd}"):
+        fact = interop.to_torch(zipf_u32(1.2, nf, SEED + 4), dev)
+        fact = (interop.widen_u32(fact) % nd).to(torch.int32).view(
+            torch.uint32)
+        dim = torch.randperm(nd, dtype=torch.int32, device=dev,
+                             generator=gen).view(torch.uint32)
+        join_cell(f"mesh dist_hash_join zipf(1.2) {nf} x {nd}", fact, dim,
+                  3)
+        del fact, dim
+        free()
+
+    # bench_all.py:225-238 (config 6): 16M probes x 4 matches, 4M build
+    m, nb = EXPAND_M, EXPAND_NB
+    tag = f"mesh dist_hash_join_expand {m} x 4, build {nb}"
+    with phase(tag):
+        nkeys = nb // 4
+        dk = (torch.randperm(nb, device=dev, generator=gen) % nkeys).to(
+            torch.int32)
+        dv = torch.arange(nb, dtype=torch.int32, device=dev)
+        pk = rand(m, 0, nkeys)
+        cap_out = int(MESH_CAP * 4 * m / p)
+        caps = dict(capacity_build=cap(nb), capacity_probe=cap(m),
+                    capacity_out=cap_out)
+        ds, dvs, ps = (pm.put_sharded(t, mesh) for t in (dk, dv, pk))
+
+        def fn():
+            return parallel.dist_hash_join_expand(ds, dvs, ps, mesh, **caps)
+        (totals, pidx, vals), launches = drive(tag, fn)
+        tot = totals.numpy().tolist()
+        check(f"{tag}: totals sum to 4 m", sum(tot) == 4 * m)
+        check(f"{tag}: no position truncated", max(tot) <= cap_out)
+        # each pair as probe row * nb + value, sorted
+        got = torch.sort(rows(pidx, tot).long() * nb
+                         + rows(vals, tot).long()).values
+        # the oracle: key k's build rows are rows 4k..4k+3 in key order
+        by_key = dv[torch.sort(dk, stable=True).indices].long().view(-1, 4)
+        want = (torch.arange(m, device=dev).long() * nb)[:, None] \
+            + by_key[pk.long()]
+        check(f"{tag}: pairs", torch.equal(got, torch.sort(
+            want.view(-1)).values))
+        del totals, pidx, vals, got, want, by_key
+        report(tag, fn, 3, mesh_expand_bytes(m, nb, caps), launches, m,
+               totals=tot)
+        del dk, dv, pk, ds, dvs, ps
+        free()
+
+    # bench_all.py:310-348 (config 9) at 4 x 16M: 64K partitions
+    n, g = MESH_COLS_N, MESH_COLS_G
+    with phase(f"mesh dist_window_cols {n} x {g}, sum + row_number"):
+        wk = rand(n, 0, g).view(torch.uint32)
+        wo = rand(n, 0, 1 << 30).view(torch.uint32)
+        wv = rand(n, 0, 100)
+        ks, os_, vs = (pm.put_sharded(t, mesh) for t in (wk, wo, wv))
+        for form, kw in (("restore", {}),
+                         ("sorted_output", {"sorted_output": True})):
+            tag = f"mesh dist_window_cols {n} x {g} sum + row_number, {form}"
+
+            def fn(kw=kw):
+                return parallel.dist_window_cols(
+                    ks, os_, (vs, None), ("sum", "row_number"), mesh, **kw)
+            out, launches = drive(tag, fn)
+            want = window_cols(wk, wo, (wv, None), ("sum", "row_number"),
+                               **kw)
+            if kw:
+                check(f"{tag}: row_src", torch.equal(out[1].cat(), want[1]))
+                out, want = out[0], want[0]
+            for a, o, w in zip(("sum", "row_number"), out, want):
+                check(f"{tag}: {a}", torch.equal(o.cat(), w))
+            del out, want
+            report(tag, fn, 3, mesh_sort_bytes(n, 4) + WINDOW_SCAN_BYTES * n
+                   + (0 if kw else mesh_sort_bytes(n, 3)), launches, n)
+            free()
+        del wk, wo, wv, ks, os_, vs
+        free()
+
+    # bench_all.py:350-370 (config 10) at 4 x 64M
+    n, k = MESH_SORT_N, TOPK_K
+    with phase(f"mesh dist_top_k {k} of {n} u32 + int32"):
+        tv = rand(n, 0, 1 << 30)
+        tp = rand(n, 0, 1 << 30)
+        vs, ps = pm.put_sharded(tv.view(torch.uint32), mesh), \
+            pm.put_sharded(tp, mesh)
+        for largest in (False, True):
+            tag = f"mesh dist_top_k {k} of {n} u32 + int32, " \
+                  f"{'largest' if largest else 'smallest'}"
+
+            def fn(largest=largest):
+                return parallel.dist_top_k(vs, k, mesh, ps, largest=largest)
+            (ov, op), launches = drive(tag, fn)
+            idx = torch.sort(tv, descending=largest, stable=True).indices[:k]
+            check(f"{tag}: values", torch.equal(
+                ov.shards[0].view(torch.int32), tv[idx]))
+            check(f"{tag}: payload", torch.equal(op.shards[0], tp[idx]))
+            check(f"{tag}: replicated", all(torch.equal(
+                s, ov.shards[0]) for s in ov.shards))
+            del ov, op, idx
+            report(tag, fn, 5, n * sum(TOPK_BYTES_PER_ROW.values()),
+                   launches, n)
+        del tv, tp, vs, ps
+        free()
+
+    # bench_all.py:372-386 (config 11) at 4 x 64M: 1M values
+    n, u = MESH_SORT_N, DISTINCT_U
+    tag = f"mesh dist_distinct {n} u32, {u} values"
+    with phase(tag):
+        dk = rand(n, 0, u)
+        ds = pm.put_sharded(dk.view(torch.uint32), mesh)
+
+        def fn():
+            return parallel.dist_distinct(ds, mesh, capacity=u)
+        (uv, ucnt), launches = drive(tag, fn)
+        want = torch.unique(dk)
+        c = int(ucnt.shards[0])
+        check(f"{tag}: count", c == want.numel())
+        check(f"{tag}: values", torch.equal(
+            uv.shards[0][:c].view(torch.int32), want))
+        del uv, ucnt, want
+        shard = n // p
+        report(tag, fn, 3, p * (2 * psort.sort_traffic_bytes(shard, 1)
+                                + shard * sum(DISTINCT_BYTES_PER_ROW.values()))
+               + 2 * psort.sort_traffic_bytes(p * u, 1), launches, n,
+               distinct=c)
+        del dk, ds
+        free()
+    print(json.dumps({"mesh_ops_phase_launches": seen}))
+    for name in MESH_OPS_KERNELS:
+        check(f"the mesh ops phase launches {name}", seen.get(name, 0) > 0)
+
+
+def multiproc_cells():
+    """Two worker processes (`cl_ops_tpu_torch.bench.mp_worker`), each
+    holding two positions of cuda:0 in one four-position
+    `multiproc.global_mesh`, run tests/mp_worker.py's list at MP_ROWS rows
+    and check their own rows against numpy. Their collectives cross the
+    process boundary over gloo, staged through host memory. A check of
+    the process mesh with its shards and kernels on the card, not a speed
+    cell: the loopback hop is in its seconds."""
+    import socket
+    with phase(f"multiproc: 2 processes x 2 positions of cuda:0, "
+               f"{MP_ROWS} rows"):
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "cl_ops_tpu_torch.bench.mp_worker",
+             str(rank), "2", str(port), "--devices", "cuda:0,cuda:0",
+             "--rows", str(MP_ROWS)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=MP_WAIT_S)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for rank, (proc, out) in enumerate(zip(procs, outs)):
+            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"multiproc worker {rank} exited "
+                                     f"{proc.returncode}:\n{out[-4000:]}")
+            rep = json.loads(lines[-1])
+            print(json.dumps({"multiproc_worker": rep}), flush=True)
+            bad = {k: v for k, v in rep["checks"].items() if v != "ok"}
+            if bad:
+                raise AssertionError(f"multiproc worker {rank}: {bad}")
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -2267,6 +2623,8 @@ def main() -> int:
     bench_cli_cells(reset, count)
     query_cli_cells(reset, count)
     mesh_cells(dev, reset, count)
+    mesh_ops_cells(dev, reset, count)
+    multiproc_cells()
 
     for name, n in main_launches.items():
         if n <= 0:
@@ -2410,6 +2768,64 @@ def mesh_sort_bytes(n, n_cols, shards=MESH_SHARDS):
         + 8 * padded * n_cols
     return shards * (bt.abitonic_traffic_bytes(n // shards, n_cols)
                      + lg * (lg + 1) // 2 * step)
+
+
+def mesh_exchange_bytes(n, n_cols):
+    """partition_exchange of n rows of n_cols 4-byte columns: the key read
+    and its partition id written, then each column read, written into its
+    bucket, and read and written again by the all_to_all. The exchange's
+    id sort, ranks and counts are not counted."""
+    return n * (8 + 16 * n_cols)
+
+
+def mesh_groupby_bytes(n, cap, n_cols, shards=MESH_SHARDS):
+    """dist_group_aggregate: the exchange of the key and measure columns,
+    then each position's sort of (validity, key, measure) over its
+    shards * cap slots and the boundary reduce's GROUPBY_BYTES_PER_ROW."""
+    from cl_ops_tpu_torch.ops.exec import psort
+    slots = shards * cap
+    return mesh_exchange_bytes(n, n_cols) + shards * (
+        psort.sort_traffic_bytes(slots, n_cols + 1)
+        + slots * sum(GROUPBY_BYTES_PER_ROW.values()))
+
+
+def mesh_join_bytes(m, nb, cb, cp, merge=False, shards=MESH_SHARDS):
+    """dist_hash_join (unique build): both sides' exchanges; per position
+    the table's sort of (validity, key, value) over shards * cb slots, the
+    probe of shards * cp slots (banded: the probe sort of (key, position),
+    one band pass and the scatter back; merge: the probe sort, the merge,
+    the compaction sort and the 4-column restore sort), the gathers of the
+    matched row's key and value (8 bytes a slot), and three return columns
+    through the all_to_all (16 bytes each a slot); then each probe row's
+    row id, count and value read and its two outputs written (17 bytes)."""
+    from cl_ops_tpu_torch.ops.exec import bandprobe, psort
+    from cl_ops_tpu_torch.ops.sort import bitonic as bt
+    from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
+    from cl_ops_tpu_torch.utils.bits import nlpo2
+    sb, sp = shards * cb, shards * cp
+    if merge:
+        p2 = nlpo2(sb + sp)
+        probe = psort.sort_traffic_bytes(sp, 2) + bk.merge_traffic_bytes(
+            p2, 2, bt.resolve_geometry(p2, 2)[1]) \
+            + psort.sort_traffic_bytes(p2, 1) + psort.sort_traffic_bytes(sp, 4)
+    else:
+        probe = psort.sort_traffic_bytes(sp, 2) \
+            + bandprobe.band_pass_traffic_bytes(sp, 1, sb) + 12 * sp
+    return mesh_exchange_bytes(nb, 2) + mesh_exchange_bytes(m, 2) + shards * (
+        psort.sort_traffic_bytes(sb, 3) + probe + 8 * sp + 48 * sp) + 17 * m
+
+
+def mesh_expand_bytes(m, nb, caps, shards=MESH_SHARDS):
+    """dist_hash_join_expand: both sides' exchanges; per position the
+    table's sort, the probe sort of (validity, key, row id), two band
+    passes, and the expansion's outputs (row id and value written, the
+    range and value read: 16 bytes a pair slot)."""
+    from cl_ops_tpu_torch.ops.exec import bandprobe, psort
+    sb, sp = shards * caps["capacity_build"], shards * caps["capacity_probe"]
+    return mesh_exchange_bytes(nb, 2) + mesh_exchange_bytes(m, 2) + shards * (
+        psort.sort_traffic_bytes(sb, 3) + psort.sort_traffic_bytes(sp, 3)
+        + 2 * bandprobe.band_pass_traffic_bytes(sp, 1, sb)
+        + 16 * caps["capacity_out"])
 
 
 def dense_read_bytes(n, n_cols, masked):

@@ -553,23 +553,22 @@ def _expand_from_ranges_banded(spos, ub, lb, svcols, capacity: int):
 
 
 def _expand_from_ranges(spos, ub, lb, svcols, capacity: int):
-    """The expansion without band passes (the pass-1 overflow fallback).
+    """The expansion without band passes (the pass-1 overflow fallback, and
+    the distributed expansion's).
 
-    Output row r belongs to the sorted probe j whose range holds it:
-    starts of non-empty ranges are marked with j and carried forward with
-    a running maximum; its build row is lb[j] + (r - start[j]).
+    Output row r belongs to the sorted probe j whose range holds it: the
+    last j whose range starts at or before r (the starts never decrease,
+    and empty ranges share the start of the next non-empty one, so the
+    last such j is the non-empty one); its build row is lb[j] + (r -
+    start[j]).
     """
     counts = ub - lb
     prefix_inc = torch.cumsum(counts, 0, dtype=torch.int32)
     start = (prefix_inc - counts).to(torch.int64)
     m, nb = counts.numel(), svcols[0].numel()
     dev = ub.device
-    live = (counts > 0) & (start < capacity)
-    mark = torch.full((capacity + 1,), -1, dtype=torch.int64, device=dev)
-    mark.scatter_(0, torch.where(live, start, capacity),
-                  torch.arange(m, dtype=torch.int64, device=dev))
-    jc = torch.cummax(mark[:capacity], 0).values.clamp(0, m - 1)
     r = torch.arange(capacity, dtype=torch.int64, device=dev)
+    jc = (torch.searchsorted(start, r, right=True) - 1).clamp(0, m - 1)
     bpos = (lb[jc] + (r - start[jc])).clamp(0, nb - 1)
     vals = tuple(v[bpos] for v in svcols)
     return _expand_glue(spos[jc], vals, prefix_inc, capacity)

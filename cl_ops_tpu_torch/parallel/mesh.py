@@ -8,11 +8,16 @@ position: the counterpart of a row-sharded (or replicated) `jax.Array`.
 
 Every movement of data between positions goes through the mesh's four
 collective methods (`all_gather`, `all_to_all`, `ppermute`, `sum_to_host`),
-so a mesh across processes changes only those methods. Each of them COPIES
-into the receiving position's memory, also when sender and receiver share
-a device: the bitonic kernels sort in place, and a received shard that
-shared storage with its sender would be overwritten by the sender's next
-merge.
+so a mesh across processes (`multiproc.ProcessMesh`) changes only those
+methods. Each of them COPIES into the receiving position's memory, also
+when sender and receiver share a device: the bitonic kernels sort in place,
+and a received shard that shared storage with its sender would be
+overwritten by the sender's next merge.
+
+A process holds some of the mesh's positions (`Mesh.positions`; all of
+them on the in-process mesh): `Mesh.devices`, `Sharded.shards`, `Mesh.map`
+and the collectives' lists have one entry per position of this process, in
+position order, while `Mesh.map` passes each entry's global position `me`.
 
 A device may repeat. `make_mesh(devices=["cpu"] * 8)` gives eight shards on
 the CPU (the tests' mesh), `make_mesh(devices=["cuda:0"] * 4)` four shards
@@ -45,42 +50,56 @@ def _device_scope(device: torch.device):
 
 
 class Mesh:
-    """A 1-D mesh: one torch device per position of the axis `axis`."""
+    """A 1-D mesh: one torch device per position of the axis `axis`, every
+    position held by this process."""
 
     def __init__(self, devices, axis: str = DATA_AXIS):
         self.devices = tuple(_indexed(default_device(d)) for d in devices)
         if not self.devices:
             raise BadArgsError("a mesh needs at least one device")
         self.axis = axis
+        # the global positions this process holds, one per device
+        self.positions = tuple(range(len(self.devices)))
+        self._size = len(self.devices)
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        """Positions of the whole mesh, over every process."""
+        return self._size
+
+    @property
+    def whole(self) -> bool:
+        """True when this process holds every position."""
+        return len(self.positions) == self._size
 
     @property
     def shape(self) -> dict[str, int]:
         """{axis: positions}, as `jax.sharding.Mesh.shape`."""
         return {self.axis: self.size}
 
+    def _key(self):
+        return (type(self), self.devices, self.axis, self.positions,
+                self._size)
+
     def __eq__(self, other) -> bool:
-        return (isinstance(other, Mesh) and self.devices == other.devices
-                and self.axis == other.axis)
+        return isinstance(other, Mesh) and self._key() == other._key()
 
     def __hash__(self) -> int:
-        return hash((self.devices, self.axis))
+        return hash(self._key())
 
     def __repr__(self) -> str:
         return f"Mesh({[str(d) for d in self.devices]}, axis={self.axis!r})"
 
     def map(self, fn, *args) -> list:
-        """[fn(me, *(a[me] for a in args)) for every position me], each with
-        its position's device current: `shard_map`'s local function. Each
-        of `args` is a Sharded or a list with one entry per position."""
+        """[fn(me, *(a[i] for a in args)) for each position me of this
+        process, i its index among them], each with its position's device
+        current: `shard_map`'s local function. Each of `args` is a Sharded
+        or a list with one entry per position of this process."""
         per = [a.shards if isinstance(a, Sharded) else a for a in args]
         out = []
-        for me, dev in enumerate(self.devices):
+        for i, (me, dev) in enumerate(zip(self.positions, self.devices)):
             with _device_scope(dev):
-                out.append(fn(me, *(p[me] for p in per)))
+                out.append(fn(me, *(p[i] for p in per)))
         return out
 
     # --- collectives: each copies into the receiver's memory ----------------
@@ -156,9 +175,10 @@ class Sharded:
 
     def __init__(self, mesh: Mesh, shards, layout: Layout | None = None):
         shards = tuple(shards)
-        if len(shards) != mesh.size:
-            raise BadArgsError(f"{len(shards)} shards for a mesh of "
-                               f"{mesh.size}")
+        if len(shards) != len(mesh.devices):
+            raise BadArgsError(f"{len(shards)} shards for the "
+                               f"{len(mesh.devices)} positions of this "
+                               "process")
         for s, dev in zip(shards, mesh.devices):
             if s.device != dev:
                 raise BadArgsError(f"shard on {s.device}, its position on "
@@ -177,14 +197,24 @@ class Sharded:
 
     @property
     def shape(self) -> tuple[int, ...]:
-        """The global shape."""
+        """The global shape. On a mesh across processes the rows split
+        evenly, as every operator of the layer splits them."""
         first = tuple(self.shards[0].shape)
         if self.layout.axis is None:
             return first
+        if not self.mesh.whole:
+            return (first[0] * self.mesh.size,) + first[1:]
         return (sum(s.shape[0] for s in self.shards),) + first[1:]
+
+    def _check_whole(self) -> None:
+        if self.layout.axis is not None and not self.mesh.whole:
+            raise BadArgsError("this process holds only some rows of a "
+                               "mesh across processes; read them with "
+                               "multiproc.local_rows")
 
     def cat(self) -> torch.Tensor:
         """The global tensor (in mesh order), on the first shard's device."""
+        self._check_whole()
         if self.layout.axis is None:
             return self.shards[0]
         dev = self.shards[0].device
@@ -192,6 +222,7 @@ class Sharded:
 
     def numpy(self) -> np.ndarray:
         """The global value as a host numpy array, bit for bit."""
+        self._check_whole()
         if self.layout.axis is None:
             return interop.to_numpy(self.shards[0])
         return np.concatenate([interop.to_numpy(s) for s in self.shards])
@@ -227,11 +258,11 @@ def make_mesh(n_devices: int | None = None, axis: str = DATA_AXIS, *,
 
 
 def put_sharded(a, mesh: Mesh, axis: str = DATA_AXIS) -> Sharded:
-    """Split rows evenly over the mesh, copying each shard onto its
-    position's device. A Sharded already laid out that way passes through
-    untouched; a numpy array, a tensor, or a Sharded of another layout is
-    split from its global value. Raises ValueError when the rows do not
-    split evenly."""
+    """Split rows evenly over the mesh, copying each of this process's
+    shards onto its position's device. A Sharded already laid out that way
+    passes through untouched; a numpy array, a tensor, or a Sharded of
+    another layout is split from its global value. Raises ValueError when
+    the rows do not split evenly."""
     layout = row_sharding(mesh, axis)
     if isinstance(a, Sharded):
         if a.layout == layout:
@@ -245,7 +276,8 @@ def put_sharded(a, mesh: Mesh, axis: str = DATA_AXIS) -> Sharded:
                          f"positions of axis {axis!r}")
     m = n // mesh.size
     return Sharded(mesh, [a[i * m:(i + 1) * m].to(dev, copy=True)
-                          for i, dev in enumerate(mesh.devices)], layout)
+                          for i, dev in zip(mesh.positions, mesh.devices)],
+                   layout)
 
 
 def iota_sharded(n: int, mesh: Mesh, axis: str = DATA_AXIS,
@@ -258,8 +290,14 @@ def iota_sharded(n: int, mesh: Mesh, axis: str = DATA_AXIS,
     dt = canonicalize(dtype)
     return Sharded(mesh, [torch.arange(i * m, (i + 1) * m, dtype=dt,
                                        device=dev)
-                          for i, dev in enumerate(mesh.devices)],
+                          for i, dev in zip(mesh.positions, mesh.devices)],
                    row_sharding(mesh, axis))
+
+
+def replicate(value: torch.Tensor, mesh: Mesh) -> Sharded:
+    """The same value at every position: a copy on each position's device."""
+    return Sharded(mesh, [value.to(dev, copy=True) for dev in mesh.devices],
+                   replicated(mesh))
 
 
 def replicated_sum_int(x, mesh: Mesh) -> int:

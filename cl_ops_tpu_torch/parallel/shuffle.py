@@ -73,3 +73,10 @@ def partition_exchange(data, part_id, mesh: Mesh, *, capacity: int,
                 [p[2][i] for p in per])])
             for i, c in enumerate(cols)]
     return (Sharded(mesh, counts), Sharded(mesh, [p[1] for p in per]), *outs)
+
+
+def valid_slots(counts: torch.Tensor, capacity: int) -> torch.Tensor:
+    """The filled slots of a position's exchange buffer, as a bool mask:
+    source s's rows fill [s * capacity, s * capacity + counts[s])."""
+    slot = torch.arange(capacity, device=counts.device)
+    return (slot[None, :] < counts.view(-1, 1)).reshape(-1)

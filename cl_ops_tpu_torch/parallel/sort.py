@@ -47,7 +47,8 @@ def _exchange_step(own, got, me: int, k: int, j: int, merge: int):
 def _reshard_prefix(cols, n: int, mesh: Mesh) -> list[Sharded]:
     """The first n rows of equal padded shards, split evenly again: row g
     moves from padded shard g // padded to shard g // (n / positions),
-    through `mesh.all_to_all` with one contiguous piece per pair."""
+    through `mesh.all_to_all` with one contiguous piece per pair. cols[i]
+    holds the columns of this process's i-th position."""
     p = mesh.size
     padded, shard_n = cols[0][0].numel(), n // p
 
@@ -57,8 +58,8 @@ def _reshard_prefix(cols, n: int, mesh: Mesh) -> list[Sharded]:
         return slice(lo - s * padded, max(hi, lo) - s * padded)
 
     return [Sharded(mesh, mesh.all_to_all(
-                [[cols[s][c][piece(s, d)] for d in range(p)]
-                 for s in range(p)]))
+                [[cs[c][piece(s, d)] for d in range(p)]
+                 for s, cs in zip(mesh.positions, cols)]))
             for c in range(len(cols[0]))]
 
 
@@ -99,7 +100,7 @@ def dist_sort_i32_cols(cols, mesh: Mesh, *,
             perm = [(i, i ^ j) for i in range(n_chips)]
             recv = [mesh.ppermute([a[c] for a in arrs], perm)
                     for c in range(len(cols))]
-            got = [[r[me] for r in recv] for me in range(n_chips)]
+            got = [[r[i] for r in recv] for i in range(len(arrs))]
             arrs = mesh.map(lambda me, own, g, k=k, j=j: _exchange_step(
                 own, g, me, k, j, merge), arrs, got)
             j //= 2

@@ -20,9 +20,10 @@ from cl_ops_tpu_torch import interop
 from cl_ops_tpu_torch.ops.exec.join import hash_u32
 from cl_ops_tpu_torch.ops.sort import keys as keymod
 from cl_ops_tpu_torch.parallel.mesh import (DATA_AXIS, Mesh, Sharded,
-                                            put_sharded, replicated,
-                                            replicated_sum_int)
-from cl_ops_tpu_torch.parallel.shuffle import partition_exchange
+                                            put_sharded, replicate,
+                                            replicated, replicated_sum_int)
+from cl_ops_tpu_torch.parallel.shuffle import (partition_exchange,
+                                               valid_slots)
 from cl_ops_tpu_torch.utils.bits import log2_floor
 
 
@@ -62,8 +63,7 @@ def _replicate(splitters, mesh: Mesh) -> Sharded:
         return splitters
     if not isinstance(splitters, torch.Tensor):
         splitters = interop.to_torch(splitters, device="cpu")
-    return Sharded(mesh, [splitters.to(dev, copy=True)
-                          for dev in mesh.devices], replicated(mesh))
+    return replicate(splitters, mesh)
 
 
 def _pids(mode: str, keys, mesh: Mesh, splitter_side: int,
@@ -77,6 +77,11 @@ def _pids(mode: str, keys, mesh: Mesh, splitter_side: int,
                          samples_per_chip=samples_per_chip, axis=axis)
     return [Sharded(mesh, mesh.map(lambda me, s, k: _range_ids(s, k), spl, k))
             for k in keys]
+
+
+# the overflow contracts of the keyed operators: re-plan on the host, or
+# one exchange whose dropped counters go back to the caller unread
+CHECKS = ("replan", "defer")
 
 
 def _check_partition(partition: str) -> None:
@@ -273,8 +278,7 @@ def dist_sort_sample(x, mesh: Mesh, *, capacity_factor: float = 2.0,
         attempt += 1
 
     def local(me, c, b):
-        slot = torch.arange(capacity, device=b.device)
-        valid = (slot[None, :] < c[:, None]).reshape(-1)
+        valid = valid_slots(c, capacity)
         bits = interop.signed_view(b)
         # the valid rows sorted, then the empty slots: validity is the
         # primary key (no key-space sentinel), for any key dtype

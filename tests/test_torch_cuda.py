@@ -26,8 +26,10 @@ one column feeding count, sum, min and max;
 chunk_copy with 1, 3 and 9 arrays, a partial last chunk and
 whole-sentinel slots; the dense GROUP BY, window functions, top-k and
 DISTINCT on the card against their CPU results; the distributed layer on
-four shards of one card against four CPU shards, and its collectives
-copying between positions on one device. Every CUDA call checks that
+four shards of one card against four CPU shards (the exchanges and sorts,
+and the join, its expansion, GROUP BY, window, top-k and DISTINCT), its
+collectives copying between positions on one device, and a mesh across
+two processes with two positions of the card each. Every CUDA call checks that
 the kernel's launch counter moved, so no CUDA tensor reaches a plain
 version. Skips without CUDA. On a machine without JAX
 run it with `python -m pytest --noconftest tests/test_torch_cuda.py`.
@@ -1284,3 +1286,159 @@ def test_exchanges_on_card_match_cpu(cuda):
     assert ccaps == hcaps and ccaps[1] > caps[1]
     for c, h in zip(cres, hres):
         _same_sharded(tuple(c), tuple(h))
+
+
+def _kernels_launched(*names):
+    got = {**bk.launches, **sk.launches, **seg.launches, **bp.launches}
+    return all(got[n] > 0 for n in names)
+
+
+def _reset_all():
+    for m in (bk, sk, seg, bp):
+        m.reset_launches()
+
+
+@pytest.mark.parametrize("check", ["replan", "defer"])
+def test_dist_group_aggregate_on_card_matches_cpu(cuda, check):
+    from cl_ops_tpu_torch import parallel
+    card, host = _mesh_pair(cuda)
+    rng = np.random.default_rng(96)
+    keys = rng.integers(0, 1 << 12, MESH_N).astype(np.uint32)
+    vals = rng.integers(-50, 50, MESH_N).astype(np.int32)
+    kw = dict(num_groups=1 << 12, capacity=MESH_N // 16 * 5 // 4,
+              check=check)
+    _reset_all()
+    got = parallel.dist_group_aggregate_cols(
+        keys, (vals, vals, vals), ("sum", "min", "mean"), card, **kw)
+    torch.cuda.synchronize()
+    assert _kernels_launched(*bk.FUSED, "scan_carry")
+    want = parallel.dist_group_aggregate_cols(
+        keys, (vals, vals, vals), ("sum", "min", "mean"), host, **kw)
+    _same_sharded(got[0], want[0])
+    _same_sharded(tuple(got[1]), tuple(want[1]))
+    _same_sharded(got[2:], want[2:])
+
+
+@pytest.mark.parametrize("nd,check,unique_build", [
+    (1 << 12, "replan", True),     # the direct band probe
+    (1 << 16, "replan", True),     # the band passes
+    (1 << 16, "replan", False),
+    (1 << 16, "defer", False)])    # the merge probe
+def test_dist_hash_join_on_card_matches_cpu(cuda, nd, check, unique_build):
+    from cl_ops_tpu_torch import parallel
+    card, host = _mesh_pair(cuda)
+    rng = np.random.default_rng(97)
+    dim = rng.permutation(nd).astype(np.uint32) // (1 + (not unique_build))
+    dimv = rng.integers(0, 2 ** 32, nd).astype(np.uint32)
+    fact = rng.integers(0, nd + 100, MESH_N).astype(np.uint32)
+    kw = dict(capacity_build=nd // 16 * 5 // 4,
+              capacity_probe=MESH_N // 16 * 5 // 4, check=check,
+              unique_build=unique_build)
+    _reset_all()
+    got = parallel.dist_hash_join(dim, dimv, fact, card, **kw)
+    torch.cuda.synchronize()
+    # the 1280-slot table sorts within one block
+    assert _kernels_launched(*(bk.FUSED if nd > 1 << 12 else
+                               ("block_sort",))) and (
+        check == "defer" or _kernels_launched("probe_band"))
+    want = parallel.dist_hash_join(dim, dimv, fact, host, **kw)
+    _same_sharded(got[0], want[0])
+    hit = want[0].numpy() > 0
+    np.testing.assert_array_equal(got[1].numpy()[hit], want[1].numpy()[hit])
+
+
+def test_dist_hash_join_expand_on_card_matches_cpu(cuda):
+    from cl_ops_tpu_torch import parallel
+    card, host = _mesh_pair(cuda)
+    rng = np.random.default_rng(98)
+    nb = 1 << 16
+    build = (rng.permutation(nb) % (nb // 4)).astype(np.uint32)
+    vals = np.arange(nb, dtype=np.int32)
+    probe = rng.integers(0, nb // 4, MESH_N // 4).astype(np.uint32)
+    kw = dict(capacity_build=nb // 16 * 5 // 4,
+              capacity_probe=MESH_N // 64 * 5 // 4, capacity_out=MESH_N // 2)
+    _reset_all()
+    got = parallel.dist_hash_join_expand(build, vals, probe, card, **kw)
+    torch.cuda.synchronize()
+    assert _kernels_launched(*bk.FUSED, "probe_band")
+    _same_sharded(got, parallel.dist_hash_join_expand(build, vals, probe,
+                                                      host, **kw))
+
+
+@pytest.mark.parametrize("sorted_output", [False, True])
+def test_dist_window_on_card_matches_cpu(cuda, sorted_output):
+    from cl_ops_tpu_torch import parallel
+    card, host = _mesh_pair(cuda)
+    rng = np.random.default_rng(99)
+    keys = rng.integers(0, 300, MESH_N).astype(np.uint32)
+    order = rng.integers(0, 1000, MESH_N).astype(np.int32)
+    vals = rng.integers(0, 100, MESH_N).astype(np.int32)
+    aggs = ("sum", "row_number", "max", "lag", "rank")
+    values = (vals, None, vals, vals, None)
+    _reset_all()
+    got = parallel.dist_window_cols(keys, order, values, aggs, card,
+                                    sorted_output=sorted_output)
+    torch.cuda.synchronize()
+    assert _kernels_launched(*bk.FUSED, "seg_scan_carry", "scan_block")
+    want = parallel.dist_window_cols(keys, order, values, aggs, host,
+                                     sorted_output=sorted_output)
+    if sorted_output:
+        _same_sharded(got[1], want[1])
+        got, want = got[0], want[0]
+    _same_sharded(tuple(got), tuple(want))
+
+
+def test_dist_top_k_and_distinct_on_card_match_cpu(cuda):
+    from cl_ops_tpu_torch import parallel
+    card, host = _mesh_pair(cuda)
+    rng = np.random.default_rng(100)
+    vals = rng.integers(0, 1 << 20, MESH_N).astype(np.uint32)
+    pay = rng.integers(-2 ** 31, 2 ** 31, MESH_N).astype(np.int32)
+    for largest in (False, True):
+        _same_sharded(parallel.dist_top_k(vals, 300, card, pay,
+                                          largest=largest),
+                      parallel.dist_top_k(vals, 300, host, pay,
+                                          largest=largest))
+    keys = (vals % 5000).astype(np.uint32)
+    _reset_all()
+    got = parallel.dist_distinct(keys, card, capacity=8192)
+    torch.cuda.synchronize()
+    assert _kernels_launched(*bk.FUSED)
+    _same_sharded(got, parallel.dist_distinct(keys, host, capacity=8192))
+
+
+def test_process_mesh_on_card():
+    """Two processes, each with two positions of cuda:0, run the worker's
+    list over gloo (the shards staged through host memory)."""
+    import socket
+    import subprocess
+    import sys
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    repo = __file__.rsplit("/tests/", 1)[0]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "cl_ops_tpu_torch.bench.mp_worker",
+         str(rank), "2", str(port), "--devices", "cuda:0,cuda:0",
+         "--rows", str(1 << 16)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=repo) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+        rep = json.loads([ln for ln in out.splitlines()
+                          if ln.startswith("{")][-1])
+        assert all(v == "ok" for v in rep["checks"].values()), rep
+        assert rep["devices"] == ["cuda:0", "cuda:0"]
+        assert all(rep["launches"][k] > 0 for k in (*bk.FUSED, "probe_band",
+                                                    "scan_carry",
+                                                    "seg_scan_carry"))
