@@ -54,7 +54,12 @@ seven kernels of its list. Last, the "multiproc" phase starts two worker
 processes (`python -m cl_ops_tpu_torch.bench.mp_worker`), each holding two
 positions of the card in one mesh across processes over gloo, which run
 tests/mp_worker.py's list at 2^24 rows and check their rows against
-numpy. Run from the repository root:
+numpy. Last, the "scaling" phase runs `bench/scaling_bench.py`'s six ops
+at 1, 2 and 4 positions of the card (2^24 rows a position), its multiproc
+leg (2 processes x 2 positions, 2^22 rows a position) and
+`bench/dryrun.py`'s dryrun_multichip on four positions, each of which must
+exit 0 with every check against numpy passing, and must launch the nine
+kernels of its list. Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -123,6 +128,16 @@ MESH_OPS_KERNELS = ("block_sort", "multi_stage", "pair_cross", "block_merge",
                     "probe_band", "scan_carry", "seg_scan_carry")
 MP_ROWS = 1 << 24           # the multiproc phase: tests/mp_worker.py's list
 MP_WAIT_S = 400             # each worker's cap
+# the scaling phase: scaling_bench's six ops, weak scaling at 2^24 rows a
+# position (16M, 32M, 64M rows at 1, 2, 4 positions; cut from BASELINE
+# config 4's 256M for the script's time), its multiproc leg at 2 processes
+# x 2 positions and 2^22 rows a position (16M rows, the multiproc phase's
+# size), and the dry run on four positions
+SCALING_OPS = "scan,sort,join,aggregate,window,topk"
+SCALING_LOG2, SCALING_MP_LOG2, SCALING_RUNS = 24, 22, 3
+SCALING_KERNELS = ("block_sort", "multi_stage", "pair_cross", "block_merge",
+                   "scan_block", "scan_block_wide", "scan_carry",
+                   "seg_scan_carry", "probe_band")
 
 
 def phase(name):
@@ -2198,6 +2213,60 @@ def multiproc_cells():
             if bad:
                 raise AssertionError(f"multiproc worker {rank}: {bad}")
 
+def scaling_cells(dev, reset, count):
+    """scaling_bench's single-process leg on SHARDS positions of `dev`, its
+    multiproc leg (2 processes x 2 positions of `dev` over gloo) and
+    dryrun_multichip on four positions of `dev`, each driven once between
+    reset() and count() and required to exit 0 (every check passing); their
+    TSV rows and seconds are printed. The phase fails unless every kernel
+    of SCALING_KERNELS launched in its own processes (the multiproc leg's
+    workers count their launches in theirs)."""
+    import tempfile
+
+    from cl_ops_tpu_torch.bench import dryrun, scaling_bench
+
+    seen = {}
+
+    def drive(tag, fn):
+        reset()
+        t = time.perf_counter()
+        out = fn()
+        print(f"{tag}: {time.perf_counter() - t:.3f} s", flush=True)
+        for k, v in count(tag).items():
+            seen[k] = seen.get(k, 0) + v
+        return out
+
+    legs = (("scaling_bench",
+             f"--device {dev} --virtual {MESH_SHARDS} --op {SCALING_OPS} "
+             f"--devices 1,2,{MESH_SHARDS} -n {SCALING_LOG2} "
+             f"-r {SCALING_RUNS}"),
+            ("scaling_bench multiproc",
+             f"--multiproc 2 --virtual 2 --device {dev} --op {SCALING_OPS} "
+             f"-n {SCALING_MP_LOG2} -r {SCALING_RUNS}"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, argv in legs:
+            tsv = os.path.join(tmp, "scaling.tsv")
+            with phase(f"scaling: {tag} {argv}"):
+                rc = drive(tag, lambda: scaling_bench.main(
+                    argv.split() + ["--out", tsv]))
+                if rc != 0:
+                    raise AssertionError(f"{tag} {argv} exited {rc}")
+                with open(tsv) as f:
+                    for line in f.read().split("\n")[:-1]:
+                        print(f"scaling tsv\t{line}")
+    with phase(f"scaling: dryrun_multichip(4, devices=[{dev!r}] * 4)"):
+        got = drive("dryrun_multichip",
+                    lambda: dryrun.dryrun_multichip(4, devices=[dev] * 4))
+        print(json.dumps({"dryrun_multichip": got}))
+        bad = {k: v for k, v in got.items() if v != "ok"}
+        if bad:
+            raise AssertionError(f"dryrun_multichip: {bad}")
+    print(json.dumps({"scaling_phase_launches": seen}))
+    for name in SCALING_KERNELS:
+        if seen.get(name, 0) <= 0:
+            raise AssertionError(f"the scaling phase launches {name}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2625,6 +2694,7 @@ def main() -> int:
     mesh_cells(dev, reset, count)
     mesh_ops_cells(dev, reset, count)
     multiproc_cells()
+    scaling_cells("cuda:0", reset, count)
 
     for name, n in main_launches.items():
         if n <= 0:

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from cl_ops_tpu_torch import interop
+from cl_ops_tpu_torch.defer import DeferredOverflowError, verify_deferred
 from cl_ops_tpu_torch.ops.rng import threefry
 
 
@@ -35,6 +36,16 @@ def _np(t) -> np.ndarray:
 def _expect(fails: list, what: str, ok) -> None:
     if not bool(ok):
         fails.append(what)
+
+
+def deferred(dropped, op_name: str) -> list[str]:
+    """A check="defer" result's dropped counters (Shardeds), this process's
+    positions through defer.verify_deferred: what fired, or nothing."""
+    try:
+        verify_deferred([d.shards for d in dropped], op_name=op_name)
+    except DeferredOverflowError as e:
+        return [str(e)]
+    return []
 
 
 def filter_rows(data, mask, count, packed, *extra) -> list[str]:
@@ -91,7 +102,7 @@ def join_probe(probe, found, vals, rows=None, *, mul=7, add=1) -> list[str]:
                 (keys[1:] >= keys[:-1]).all())
     _expect(fails, "join: a probe not found", _np(found).all())
     want = (keys.astype(np.uint64) * mul + add).astype(np.uint32)
-    _expect(fails, "join values differ from key * 7 + 1",
+    _expect(fails, f"join values differ from key * {mul} + {add}",
             np.array_equal(_np(vals).view(np.uint32), want))
     return fails
 
@@ -122,11 +133,31 @@ def expansion(probe, build_keys, build_vals, capacity: int, total, pidx,
     return fails
 
 
+def _lex_order(keys, order) -> np.ndarray:
+    """np.lexsort((arange(n), order, keys)). Where the ranges of keys,
+    order and position fit 64 bits together, one unstable sort of the three
+    packed into a uint64 instead of lexsort's three stable passes: the
+    position makes every packed value distinct, so the order is the same."""
+    n = keys.size
+    cols = [c.astype(np.int64) - int(c.min()) for c in (keys, order)
+            if n and c.dtype.kind in "iub" and c.dtype.itemsize <= 4]
+    if len(cols) == 2:
+        bits = [int(c.max()).bit_length() for c in cols]
+        bits.append((n - 1).bit_length())
+        if sum(bits) <= 64:
+            packed = np.zeros(n, np.uint64)
+            for c, b in zip(cols + [np.arange(n)], bits):
+                packed = (packed << np.uint64(b)) | c.astype(np.uint64)
+            low = np.uint64((1 << bits[-1]) - 1)
+            return (np.sort(packed) & low).astype(np.int64)
+    return np.lexsort((np.arange(n), order, keys))
+
+
 def window_oracle(keys, order, vals):
     """(idx, run sum, row number) of sum + row_number over (key, order,
     position): idx is the window order, the rest in that order."""
     n = keys.size
-    idx = np.lexsort((np.arange(n), order, keys))
+    idx = _lex_order(keys, order)
     sk = keys[idx]
     start = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
     run_len = np.diff(np.r_[start, n])

@@ -20,6 +20,8 @@ import time
 import numpy as np
 import torch
 
+from cl_ops_tpu_torch.parallel.mesh import Sharded
+
 
 def rand_array(dtype, n: int, seed: int = 0) -> np.ndarray:
     """Typed random values covering the type's range (clo_bench_rand parity).
@@ -100,15 +102,18 @@ def write_tsv(path: str, rows: list[dict]) -> None:
 
 def default_sync(device=None):
     """A sync_fn for time_async: it synchronises `device` when given, else
-    the CUDA device of the output (the first element of a tuple), and does
-    nothing for CPU tensors."""
+    the CUDA devices of the output (the first element of a tuple): a
+    tensor's device, or every device of a `Sharded` (on a mesh across
+    processes, this process's positions). CPU tensors need nothing."""
     def sync(out):
         if device is not None:
-            dev = torch.device(device)
+            devs = {torch.device(device)}
         else:
             if isinstance(out, tuple):
                 out = out[0]
-            dev = out.device
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            devs = set(out.devices) if isinstance(out, Sharded) \
+                else {out.device}
+        for dev in devs:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
     return sync

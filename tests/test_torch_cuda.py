@@ -28,8 +28,9 @@ whole-sentinel slots; the dense GROUP BY, window functions, top-k and
 DISTINCT on the card against their CPU results; the distributed layer on
 four shards of one card against four CPU shards (the exchanges and sorts,
 and the join, its expansion, GROUP BY, window, top-k and DISTINCT), its
-collectives copying between positions on one device, and a mesh across
-two processes with two positions of the card each. Every CUDA call checks that
+collectives copying between positions on one device, a mesh across
+two processes with two positions of the card each, scaling_bench's six ops
+at mesh sizes 1, 2 and 4 of the card, and the dry run on four positions. Every CUDA call checks that
 the kernel's launch counter moved, so no CUDA tensor reaches a plain
 version. Skips without CUDA. On a machine without JAX
 run it with `python -m pytest --noconftest tests/test_torch_cuda.py`.
@@ -1442,3 +1443,47 @@ def test_process_mesh_on_card():
         assert all(rep["launches"][k] > 0 for k in (*bk.FUSED, "probe_band",
                                                     "scan_carry",
                                                     "seg_scan_carry"))
+
+
+# --- scaling_bench and the dry run on four positions of one card ------------
+
+# a kernel each op must launch at 2^16 rows a position
+SCALING_OPS = {"scan": "scan_block", "sort": "pair_cross",
+               "join": "block_sort", "aggregate": "scan_carry",
+               "window": "seg_scan_carry", "topk": "block_sort"}
+
+
+@pytest.mark.parametrize("op", sorted(SCALING_OPS))
+def test_scaling_bench_on_card(cuda, op, tmp_path):
+    """Every op at mesh sizes 1, 2 and 4 of cuda:0, each held to numpy by
+    the CLI itself, through the kernels."""
+    from cl_ops_tpu_torch.bench import scaling_bench
+    out = tmp_path / "scaling.tsv"
+    _reset_all()
+    rc = scaling_bench.main(["--device", "cuda:0", "--virtual", "4",
+                             "--op", op, "--devices", "1,2,4", "-n", "16",
+                             "-r", "1", "--out", str(out)])
+    assert rc == 0
+    lines = out.read_text().strip().split("\n")
+    assert len(lines) == 4
+    assert [int(ln.split("\t")[1]) for ln in lines[1:]] == [1, 2, 4]
+    assert _kernels_launched(SCALING_OPS[op])
+
+
+def test_scaling_bench_on_card_refuses_oversize(cuda):
+    from cl_ops_tpu_torch.bench import scaling_bench
+    assert scaling_bench.main(["--device", "cuda:0", "--virtual", "4",
+                               "--op", "scan", "--devices", "8,4", "-n", "8",
+                               "-r", "1"]) == 1
+
+
+def test_dryrun_on_card(cuda):
+    from cl_ops_tpu_torch.bench import dryrun
+    _reset_all()
+    got = dryrun.dryrun_multichip(4, devices=["cuda:0"] * 4)
+    assert got and all(v == "ok" for v in got.values()), got
+    # 1024 rows a position: every sort fits in one merge block (no
+    # pair_cross); the joins' tables take the band probe's direct form
+    assert _kernels_launched("block_sort", "multi_stage", "block_merge",
+                             "scan_block_wide", "scan_carry",
+                             "seg_scan_carry", "probe_band")
