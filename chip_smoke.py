@@ -5,8 +5,9 @@ Builds the CUDA kernels from `cl_ops_tpu_torch/csrc/` (bitonic.cu, scan.cu,
 bandprobe.cu, radix.cu, dense_agg.cu and chunk_copy.cu, one nvcc per
 source, started together), holds each of the fifteen kernel entry points
 against its plain PyTorch version at the main path's shapes (with each
-kernel's own device time from torch.profiler beside its event time),
-drives the main path
+kernel's own device time from torch.profiler beside its event time;
+pair_cross at single steps and at every span of its runs of a stage's
+cross steps), drives the main path
 (abitonic sort of 16M u32 keys, KV sort of 16M u64 keys with u32 values,
 sort_pipeline at 16M, filter_compact over 64M rows at 10% selectivity,
 GROUP BY of 256M rows into 1M groups, analytics_query over 64M rows,
@@ -22,7 +23,8 @@ rows and of 64M rows into 1024 groups, window sum + row_number over 16M
 rows in 64K partitions in both output forms, top-1K of 64M u32 and a
 duplicate flood at 16M, DISTINCT over 64M u32 with 1M values, and the
 blocked run copy of one radix-16 pass over 16M keys), checks every result
-against torch, numpy or a formula, and times the kernels and the phases
+against torch, numpy or a formula (and the fused sorts' launches against
+`bitonic_kernels.sweeps`), and times the kernels and the phases
 with CUDA events. Then the seven RNG generators (card against CPU at
 262144 streams x 10 draws and on the first 4096 of 2^24 streams x 16
 draws, HOST_MT states against numpy's), the measured stream ceiling, a
@@ -174,10 +176,11 @@ def cuda_ms(fn, reps, before=None):
 
 # The CUDA kernel each kernel record times: a substring of its name in the
 # profiler (multi_stage is block_sort_kernel from stage 2B; both rank_hist
-# entry points run rank_hist_kernel).
+# entry points run rank_hist_kernel; pair_cross runs pair_cross_kernel for
+# one step and pair_cross_tile_kernel for a run of them).
 DEVICE_KERNEL = {
     "block_sort": "block_sort_kernel", "multi_stage": "block_sort_kernel",
-    "pair_cross": "pair_cross_kernel", "block_merge": "block_merge_kernel",
+    "pair_cross": "pair_cross", "block_merge": "block_merge_kernel",
     "whole_sort": "whole_sort_kernel", "scan_carry": "carry_tiles",
     "scan_carry_wide": "carry_tiles", "seg_scan_carry": "seg_tiles",
     "scan_block": "scan_block_tiles", "scan_block_wide": "scan_block_tiles",
@@ -440,10 +443,12 @@ def block_sort_ptxas(log):
 
 
 def bitonic_record(name, kern, plain, args, state, num_keys, steps, library,
-                   shape):
+                   shape, sweeps=1):
     """One fused-schedule kernel against its plain version on copies of
     `state`, timed (each run from the same input) beside its plain version
-    and the library call; returns (record, the plain version's output)."""
+    and the library call; kern makes `sweeps` launches a call, each reading
+    and writing every column once. Returns (record, the plain version's
+    output)."""
     import torch
     n, nc = state[0].numel(), len(state)
     src = [c.clone() for c in state]
@@ -465,8 +470,10 @@ def bitonic_record(name, kern, plain, args, state, num_keys, steps, library,
     plain_ms = cuda_ms(lambda: plain(work, *args, num_keys), 3, restore)
     lib_ms = cuda_ms(library, 5) if library is not None else None
     return kernel_record(name, "cl_ops_tpu_torch/csrc/bitonic.cu", err, ms,
-                         plain_ms, 2 * nc * 4 * n,
-                         2 * num_keys * (n // 2) * steps, lib_ms, shape), ref
+                         plain_ms, sweeps * 2 * nc * 4 * n,
+                         2 * num_keys * (n // 2) * steps, lib_ms, shape,
+                         **({"launches_per_call": sweeps} if sweeps > 1
+                            else {})), ref
 
 
 def groupby_multi_stage_record(dev):
@@ -771,7 +778,8 @@ def join_cells(dev, reset, count):
 def sort_family_kernel_records(dev):
     """rank_hist over 16M digits at radix 16 and 256, rank_hist_limb over
     16M limbs at a middle and the last shift of each, pair_cross at J = 1,
-    16, 32 and 1024 over 16M u32 keys, and whole_sort at 1M, at its
+    16, 32 and 1024 over 16M u32 keys and its runs (cross_run_records),
+    and whole_sort at 1M, at its
     capacity (2^21 keys) and over 2^19 rows of three columns with two
     keys, each against its plain version and the library bit for bit."""
     import torch
@@ -850,6 +858,7 @@ def sort_family_kernel_records(dev):
                     restore), 2 * 4 * n, 2 * (n // 2), None,
             f"n={n} cols=1 K={2 * j} J={j}")
         del work, ref
+    recs.update(cross_run_records(x, gen))
     for wn in (1 << 20, bk.WHOLE_MAX):
         xw = x[:wn].clone()
         work, ref = [xw.clone()], [xw.clone()]
@@ -909,6 +918,52 @@ def sort_family_kernel_records(dev):
         f"blocks={wn // sl}")
     del work, ref, src
     return recs
+
+
+def cross_run_records(x, gen):
+    """pair_cross's runs of a stage's cross steps in one launch, each
+    against its tile-form plain version with max_abs_err 0: over the 16M
+    u32 keys `x` at every span 1 .. cross_span(1) of the top stage
+    (K = n, J = n/2 down), and at the full span of the KV sort's 3
+    columns (2 keys) at 16M and of GROUP BY's 2 columns (1 key) at 256M.
+    Bound: one sweep, 2 x 4 bytes a row and column."""
+    import torch
+    from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
+    dev = x.device
+    n = x.numel()
+    kv = [x, torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), dtype=torch.int32,
+                           device=dev, generator=gen),
+          torch.arange(n, dtype=torch.int32, device=dev)]
+    cases = [(f"pair_cross span {s}", [x], 1, s)
+             for s in range(1, bk.cross_span(1) + 1)]
+    cases.append(("pair_cross kv span", kv, 2, bk.cross_span(3)))
+    recs = {}
+    for tag, cols, nk, span in cases:
+        recs[tag] = cross_run_record(cols, nk, span)
+    del kv, cases
+    gb = [torch.randint(0, GROUPBY_G, (GROUPBY_N,), dtype=torch.int32,
+                        device=dev, generator=gen),
+          torch.randint(0, 100, (GROUPBY_N,), dtype=torch.int32, device=dev,
+                        generator=gen)]
+    recs["pair_cross groupby span"] = cross_run_record(gb, 1,
+                                                       bk.cross_span(2))
+    return recs
+
+
+def cross_run_record(src, num_keys, span):
+    """One pair_cross launch of `span` steps (K = n, J = n/2 ..) on copies
+    of `src` against its plain version, timed beside it."""
+    from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
+    n = src[0].numel()
+    j = n // 2
+    jl = j >> (span - 1)
+    rec, _ = bitonic_record(
+        "pair_cross",
+        lambda w, num_keys: bk.pair_cross_(w, n, j, num_keys, j_last=jl),
+        lambda w, nk: bk.pair_cross_plain(w, n, j, nk, jl), (), src,
+        num_keys, span, None, f"n={n} cols={len(src)} num_keys={num_keys} "
+                              f"K={n} J={j}..{jl} steps={span}")
+    return rec
 
 
 def sort_family_cells(dev, reset, count):
@@ -2320,18 +2375,30 @@ def main() -> int:
     # -- each kernel against its plain version, at the main-path shapes -------
     def kernel_table(cols, num_keys, library):
         """Run the four kernels in schedule order from `cols`; each one's
-        input is the previous one's output. Returns per-kernel records."""
+        input is the previous one's output. pair_cross runs the top
+        stage's cross steps (K = n, J = n/2 .. M) in its cross_passes
+        launches. Returns per-kernel records."""
         n, nc = cols[0].numel(), len(cols)
         b, m = bt.resolve_geometry(n, nc)
         assert n > m > b, (n, m, b)
+        passes = bk.cross_passes(n, n // 2, m, bk.cross_span(nc))
         steps = {"block_sort": (b.bit_length() - 1) * b.bit_length() // 2,
                  "multi_stage": sum(s for s in range(b.bit_length(),
                                                      m.bit_length())),
-                 "pair_cross": 1, "block_merge": m.bit_length() - 1}
+                 "pair_cross": (n // m).bit_length() - 1,
+                 "block_merge": m.bit_length() - 1}
+
+        def top_cross(work, num_keys):
+            for j, jl in passes:
+                bk.pair_cross_(work, n, j, num_keys, j_last=jl)
+
+        def top_cross_plain(work, num_keys):
+            for j, jl in passes:
+                bk.pair_cross_plain(work, n, j, num_keys, jl)
         calls = {
             "block_sort": (bk.block_sort_, bk.block_sort_plain, (b,)),
             "multi_stage": (bk.multi_stage_, bk.multi_stage_plain, (b, m)),
-            "pair_cross": (bk.pair_cross_, bk.pair_cross_plain, (2 * m, m)),
+            "pair_cross": (top_cross, top_cross_plain, ()),
             "block_merge": (bk.block_merge_, bk.block_merge_plain,
                             (m, 2 * m)),
         }
@@ -2339,10 +2406,14 @@ def main() -> int:
         state = [c.clone() for c in cols]
         for name in bk.FUSED:
             kern, plain, args = calls[name]
+            shape = (f"n={n} cols={nc} num_keys={num_keys} block={b} "
+                     f"merge={m}")
+            if name == "pair_cross":
+                shape += f" K={n} J={n // 2}..{m} passes={passes}"
             rec, state = bitonic_record(
                 name, kern, plain, args, state, num_keys, steps[name],
-                library.get(name), f"n={n} cols={nc} num_keys={num_keys} "
-                                   f"block={b} merge={m}")
+                library.get(name), shape,
+                sweeps=len(passes) if name == "pair_cross" else 1)
             recs.append(rec)  # the next kernel's input: its plain output
         return recs
 
@@ -2457,12 +2528,22 @@ def main() -> int:
         print(f"launches in {name}:", json.dumps(now))
         return now
 
+    def fused_launches(launches, n, n_cols):
+        """Fail unless one fused sort of n rows x n_cols columns at the
+        default geometry launched what bitonic_kernels.sweeps() says."""
+        b, m = bt.resolve_geometry(n, n_cols)
+        want = bk.sweeps(n, b, m, n_cols)
+        got = {k: launches[k] for k in bk.FUSED}
+        if got != want:
+            raise AssertionError(f"fused sort of {n} x {n_cols}: launches "
+                                 f"{got}, sweeps() {want}")
+
     sorter = sort_new("abitonic")
     with phase("sort 16M u32"):
         reset()
         out = sorter.sort_with_device_data(keys32)
         torch.cuda.synchronize()
-        count("sort")
+        fused_launches(count("sort"), SORT_N, 1)
         limbs_in = x.clone()
         ref, _ = torch.sort(limbs_in)
         got = keymod.to_limbs(out)[0]
@@ -2487,7 +2568,7 @@ def main() -> int:
         reset()
         ok_keys, ok_vals = kv_sorter.sort_with_device_data(keys64, idx)
         torch.cuda.synchronize()
-        count("kv sort")
+        fused_launches(count("kv sort"), SORT_N, 3)
         hk = interop.to_numpy(ok_keys)
         hv = interop.to_numpy(ok_vals).astype(np.int64)
         if not np.array_equal(hk, np.sort(host_keys)):
@@ -2568,6 +2649,7 @@ def main() -> int:
         gk, tbl, cnt = groupby()
         torch.cuda.synchronize()
         gb_launches = count("group by")
+        fused_launches(gb_launches, GROUPBY_N, 2)
         check("group by runs scan_carry", gb_launches["scan_carry"] > 0)
         held("group by", checks.group_sums(h_keys, h_vals, GROUPBY_G, gk,
                                            tbl, cnt))
@@ -2713,6 +2795,9 @@ def main() -> int:
                           query_recs["chunk_copy"]]
     u32_recs[2]["ms_by_distance"] = {
         j: family_recs[f"pair_cross {j}"]["ms"] for j in (1, 16, 32, 1024)}
+    u32_recs[2]["ms_by_span"] = {
+        s: family_recs[f"pair_cross span {s}"]["ms"]
+        for s in range(1, bk.cross_span(1) + 1)}
     for r in summary:
         r["launches"] = main_launches[r["name"]]
     print(json.dumps({"profiled_device_ms": PROFILED_MS}))

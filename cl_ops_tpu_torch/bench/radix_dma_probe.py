@@ -6,11 +6,12 @@ of one blocked radix scatter pass over n int32 keys (RandomState(0), below
 
   phase1_localsort: the stable digit sort inside each block. The bitonic
       network's stages K = 2 .. block run through the fused sort's entry
-      points (block_sort_, multi_stage_, then per stage pair_cross_ and
-      block_merge_) on the columns (digit * block + position, key). The
-      JAX probe's one launch took a 65536-key block; block_sort's tile at
-      2 columns is 4096 rows (PERF.md §3), so the stages above it are
-      device-memory steps, as in the full sort.
+      points (block_sort_, multi_stage_, then per stage the pair_cross_
+      passes of `cross_passes` and block_merge_) on the columns (digit *
+      block + position, key). The JAX probe's one launch took a
+      65536-key block; the merge tile at 2 columns is 16384 rows
+      (PERF.md §3), so the stages above it take cross passes, as in the
+      full sort.
   phase1_rankhist: the rank/histogram kernel (the counters of the run
       bases) at its own tile, at most 16384 digits (rank_hist's limit);
       a block's histogram is the sum of its tiles'.
@@ -79,12 +80,11 @@ def local_sort(cols, block: int):
     bk.block_sort_(cols, b)
     if m > b:
         bk.multi_stage_(cols, b, m)
+    span = bk.cross_span(len(cols))
     k = 2 * m
     while k <= block:
-        j = k // 2
-        while j >= m:
-            bk.pair_cross_(cols, k, j)
-            j //= 2
+        for j, jl in bk.cross_passes(k, k // 2, m, span):
+            bk.pair_cross_(cols, k, j, j_last=jl)
         bk.block_merge_(cols, m, k)
         k *= 2
     return cols

@@ -14,14 +14,14 @@
 // pair in stage K is ascending iff (global index of lo) & K == 0; K = 0
 // makes every pair ascending (the final merge of a bitonic sequence).
 //
-// Four kernels serve five entry points, all in place. Each launch of the
+// Five kernels serve five entry points, all in place. Each launch of the
 // fused schedule's four (block_sort, multi_stage, pair_cross, block_merge)
 // reads and writes every column once, 2 * n_cols * 4 * n bytes of device
-// memory: the ones that keep a tile on chip run many network steps per such
-// sweep, most of them in registers (block_sort_kernel serves block_sort and
-// multi_stage, which differ only in their first stage; block_merge_kernel),
-// and the one that works in device memory (pair_cross) runs one step per
-// sweep with neighbouring threads on neighbouring addresses. whole_sort runs
+// memory, and runs many network steps per such sweep, most of them in
+// registers (block_sort_kernel serves block_sort and multi_stage, which
+// differ only in their first stage; block_merge_kernel; pair_cross runs a
+// run of one stage's cross steps on gathered tiles, pair_cross_tile_kernel,
+// or a single step in device memory, pair_cross_kernel). whole_sort runs
 // the whole network in one cooperative launch, with most steps in registers.
 //
 // Each entry point launches on the stream it is given, allocates nothing and
@@ -76,13 +76,15 @@ __device__ __forceinline__ void pair_step(const Cols& cols, int n_cols,
 // the one-launch-per-step sorter ("sbitonic") in place of _cross_kernel
 // (steps J >= its block) and _single_step_kernel (steps J < its block):
 // the TPU splits one step at its block size only because a Pallas kernel
-// sees a block at a time; here one kernel runs any step (k, j), j >= 1. One
-// step in device memory: thread p owns the pair (lo, lo + j). Bound: one
-// sweep of every column (here, a read of the key columns of every row and a
-// write of the rows that swap). Neighbouring threads touch neighbouring
-// addresses on both sides of the pair (at j < 32 a warp's lo and hi
-// interleave within the same lines), so each warp's loads and stores
-// coalesce.
+// sees a block at a time; here one entry point runs any run of steps
+// J = j .. j_last of a stage k, j >= j_last >= 1, in one sweep. A single
+// step (j_last == j) runs here, in device memory: thread p owns the pair
+// (lo, lo + j). Bound: one sweep of every column (here, a read of the key
+// columns of every row and a write of the rows that swap). Neighbouring
+// threads touch neighbouring addresses on both sides of the pair (at j < 32
+// a warp's lo and hi interleave within the same lines), so each warp's
+// loads and stores coalesce. A longer run takes pair_cross_tile_kernel
+// (below block_merge).
 __global__ void pair_cross_kernel(Cols cols, int n_cols, int num_keys,
                                   unsigned half, unsigned k, unsigned j) {
   unsigned p = blockIdx.x * blockDim.x + threadIdx.x;
@@ -671,6 +673,120 @@ __global__ void __launch_bounds__(BlockTile<NC, R>::kMaxThreads)
   store_tile<NC, R>(cols, v, base);
 }
 
+// pair_cross_tile_kernel: a run of s > 1 cross steps J = j .. j_last of one
+// stage k in one sweep (the fused schedule's stages K > M take
+// ceil(steps / cross_span) such launches, not one per step). Bound: one read
+// and one write of every column. The rows whose indices differ only in the
+// bits log2(j_last) .. log2(j) form groups of 2^s that those steps close,
+// so a block can run all of them on chip. It gathers, as whole_sort's phase
+// A does, 2^s runs of L contiguous rows, one run per group member (j_last
+// apart): L = rows / 2^s >= 32 (s <= cross_span), so every load and store
+// of a run covers full 128-byte lines of each column. The tile's local
+// distances are then L .. rows/2; where 2j fits the tile (short distances,
+// or an array under a tile), the tile is instead `rows` contiguous rows at
+// local distances j .. j_last. The direction is (global index of lo) & k:
+// k lies above every J bit, so a gathered tile has one direction, that of
+// its group base. The block holds the tile in its T = rows / R threads'
+// registers, R = block_rows_full rows each (1 in tiles under 32 R rows), in
+// the transposed layout (thread t: local rows t + m T), loaded and stored
+// straight from device memory with a warp on 32 rows of a run. The steps at
+// local distance >= T run there, in registers: at R = 32 that is every step
+// of a run of up to 5, which then needs no shared memory and no barrier.
+// The smaller distances run as in block_merge (local_steps) through the
+// padded tile in shared memory, allocated only for such runs. No step of a
+// run depends on another block, so the grid is a plain one of n / rows
+// independent blocks.
+//
+// Tile rows: the largest power of two whose columns fit 96 KB, so that two
+// padded tiles share an SM (16384 rows at one column, 8192 at 2-3, 4096 at
+// 4-6, 2048 at 7-8); cross_span = log2(rows / 32): 9, 8, 8, 7, 7, 7, 6, 6.
+// Half that tile (one step less a pass, more blocks an SM) ran faster
+// passes at 3 columns but no faster sorts at 1-3 columns on the H100. The
+// launch bounds ask for two blocks an SM: at one column (512 threads, 64
+// registers) and at 6 ptxas spills a few words a thread.
+#define CROSS_TILE_BYTES 98304
+
+__host__ __device__ constexpr unsigned cross_rows(int nc) {
+  unsigned s = 1;
+  while (2ull * s * nc * sizeof(int32_t) <= CROSS_TILE_BYTES) s *= 2;
+  return s;
+}
+
+__host__ __device__ constexpr int ilog2(unsigned x) {
+  int l = 0;
+  while (x >>= 1) ++l;
+  return l;
+}
+
+__host__ __device__ constexpr int cross_span(int nc) {
+  return ilog2(cross_rows(nc) / 32);
+}
+
+template <int NC, int R>
+struct CrossTile {
+  static constexpr int kMaxThreads =
+      R == 1 ? 32 * block_rows_full(NC) / 2 : cross_rows(NC) / R;
+};
+
+// The tile's local row g is global row at + (g >> lg) * stride + g % 2^lg
+// (runs of 2^lg rows, stride apart) <-> registers in the transposed layout.
+template <int NC, int R, bool STORE>
+__device__ __forceinline__ void move_runs(const Cols& cols,
+                                          int32_t (&v)[NC][R], unsigned at,
+                                          unsigned lg, unsigned stride) {
+  const unsigned T = fresh(blockDim.x);
+  const unsigned low = (1u << lg) - 1;
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    const unsigned g = threadIdx.x + m * T;
+    const unsigned i = at + (g >> lg) * stride + (g & low);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if constexpr (STORE)
+        cols.p[c][i] = v[c][m];
+      else
+        v[c][m] = cols.p[c][i];
+    }
+  }
+}
+
+// Block b takes chunk b % 2^chunks_lg of group b >> chunks_lg: the group's
+// rows start at base = (b >> chunks_lg) * group_rows, the chunk's runs at
+// base + (b % 2^chunks_lg) * 2^run_lg. Steps at local distances d_first ..
+// d_last (halving).
+template <int NC, int R>
+__global__ void __launch_bounds__(CrossTile<NC, R>::kMaxThreads, 2)
+    pair_cross_tile_kernel(Cols cols, int num_keys, unsigned k,
+                           unsigned run_lg, unsigned stride,
+                           unsigned chunks_lg, unsigned group_rows,
+                           unsigned d_first, unsigned d_last) {
+  extern __shared__ int32_t smem[];
+  const unsigned T = blockDim.x;
+  const unsigned S = T * R;
+  const unsigned P = S + (S >> 5);
+  const unsigned mask = T >= 32 ? 0xFFFFFFFFu : (1u << T) - 1;
+  const unsigned b = blockIdx.x;
+  const unsigned base = (b >> chunks_lg) * group_rows;
+  const unsigned at = base + ((b & ((1u << chunks_lg) - 1)) << run_lg);
+  int32_t v[NC][R];
+  move_runs<NC, R, false>(cols, v, at, run_lg, stride);
+  unsigned d = d_first;
+  if (d >= T) {  // register distances D < R are local distances D * T
+    reg_steps<NC, R>(v, num_keys, base, k, threadIdx.x, T, d,
+                     d_last > T ? d_last : T);
+    d = T >> 1;
+  }
+  if (d >= d_last) {
+    trans_to_smem<NC, R>(v, smem, P);
+    __syncthreads();
+    local_steps<NC, R, 5, true>(v, smem, P, S, num_keys, base, k, d, d_last,
+                                mask, true, true);
+    __syncthreads();
+    smem_to_trans<NC, R>(v, smem, P);
+  }
+  move_runs<NC, R, true>(cols, v, at, run_lg, stride);
+}
+
 // Rows per thread of whole_sort at nc columns (1 for small slices).
 static constexpr int whole_rows(int nc) {
   return nc == 1 ? 16 : nc == 2 ? 8 : nc <= 4 ? 4 : 2;
@@ -689,21 +805,94 @@ static int set_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-extern "C" int clo_pair_cross(void* const* ptrs, int n_cols, int num_keys,
-                              int n, int k, int j, void* stream) {
-  unsigned half = (unsigned)n / 2;
-  unsigned threads = 256;
-  pair_cross_kernel<<<(half + threads - 1) / threads, threads, 0,
-                      (cudaStream_t)stream>>>(make_cols(ptrs, n_cols), n_cols,
-                                              num_keys, half, (unsigned)k,
-                                              (unsigned)j);
-  return (int)cudaGetLastError();
-}
-
 // Rows per thread of the block kernels at nc columns in tiles of len rows.
 static int block_rows(int nc, unsigned len) {
   return len >= 32u * block_rows_full(nc) ? block_rows_full(nc) : 1;
 }
+
+// One pair_cross_tile_kernel launch over n rows in tiles of `rows`: steps
+// j .. j_last (2j <= n, at most cross_span(NC) of them) of stage k.
+template <int NC, int R>
+static int launch_cross(Cols cols, int num_keys, unsigned n, unsigned rows,
+                        unsigned k, unsigned j, unsigned j_last,
+                        cudaStream_t stream) {
+  auto kernel = pair_cross_tile_kernel<NC, R>;
+  const unsigned threads = rows / R;
+  unsigned run_lg, stride, chunks_lg, group_rows, d_first, d_last;
+  if (2 * j <= rows) {  // one contiguous tile holds whole groups
+    run_lg = ilog2(rows);
+    stride = rows;
+    chunks_lg = 0;
+    group_rows = rows;
+    d_first = j;
+    d_last = j_last;
+  } else {  // 2^s runs of rows / 2^s, j_last apart
+    const unsigned run = rows / (2 * j / j_last);
+    run_lg = ilog2(run);
+    stride = j_last;
+    chunks_lg = ilog2(j_last / run);
+    group_rows = 2 * j;
+    d_first = rows / 2;
+    d_last = run;
+  }
+  if (threads > (unsigned)CrossTile<NC, R>::kMaxThreads || d_last < 1)
+    return (int)cudaErrorInvalidValue;
+  // shared memory only for the steps below the block's threads
+  const size_t smem =
+      d_last < threads ? (size_t)NC * (rows + rows / 32) * sizeof(int32_t)
+                       : 0;
+  int err = set_smem(kernel, smem);
+  if (err) return err;
+  kernel<<<n / rows, threads, smem, stream>>>(cols, num_keys, k, run_lg,
+                                               stride, chunks_lg, group_rows,
+                                               d_first, d_last);
+  return (int)cudaGetLastError();
+}
+
+template <int NC>
+static int launch_cross_rows(Cols cols, int num_keys, unsigned n, unsigned k,
+                             unsigned j, unsigned j_last,
+                             cudaStream_t stream) {
+  constexpr int R = block_rows_full(NC);
+  const unsigned rows = n < cross_rows(NC) ? n : cross_rows(NC);
+  if (ilog2(j / j_last) >= cross_span(NC)) return (int)cudaErrorInvalidValue;
+  if (block_rows(NC, rows) == R)
+    return launch_cross<NC, R>(cols, num_keys, n, rows, k, j, j_last, stream);
+  return launch_cross<NC, 1>(cols, num_keys, n, rows, k, j, j_last, stream);
+}
+
+// Steps j .. j_last of stage k: one step in device memory
+// (pair_cross_kernel), a longer run on gathered tiles.
+extern "C" int clo_pair_cross(void* const* ptrs, int n_cols, int num_keys,
+                              int n, int k, int j, int j_last, void* stream) {
+  const unsigned un = (unsigned)n, uk = (unsigned)k, uj = (unsigned)j,
+                 ul = (unsigned)j_last;
+  cudaStream_t st = (cudaStream_t)stream;
+  Cols c = make_cols(ptrs, n_cols);
+  if (ul < 1 || ul > uj || 2ull * uj > un) return (int)cudaErrorInvalidValue;
+  if (ul == uj) {
+    unsigned half = un / 2;
+    unsigned threads = 256;
+    pair_cross_kernel<<<(half + threads - 1) / threads, threads, 0, st>>>(
+        c, n_cols, num_keys, half, uk, uj);
+    return (int)cudaGetLastError();
+  }
+  switch (n_cols) {
+    case 1: return launch_cross_rows<1>(c, num_keys, un, uk, uj, ul, st);
+    case 2: return launch_cross_rows<2>(c, num_keys, un, uk, uj, ul, st);
+    case 3: return launch_cross_rows<3>(c, num_keys, un, uk, uj, ul, st);
+    case 4: return launch_cross_rows<4>(c, num_keys, un, uk, uj, ul, st);
+    case 5: return launch_cross_rows<5>(c, num_keys, un, uk, uj, ul, st);
+    case 6: return launch_cross_rows<6>(c, num_keys, un, uk, uj, ul, st);
+    case 7: return launch_cross_rows<7>(c, num_keys, un, uk, uj, ul, st);
+    case 8: return launch_cross_rows<8>(c, num_keys, un, uk, uj, ul, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Steps one pair_cross launch may take at nc columns, for
+// bitonic_kernels.cross_span to check.
+extern "C" int clo_cross_span(int n_cols) { return cross_span(n_cols); }
 
 template <int NC, int R>
 static int launch_block(bool merge, Cols cols, int num_keys, unsigned n,

@@ -13,7 +13,8 @@ padded length. Its options, in the order they win:
                               tuner's verdict with autotune=1.
 
 sbitonic launches pair_cross once per network step (K, J), the reference's
-simple bitonic. Its option `block_elems=` is validated for parity with the
+simple bitonic (abitonic's pair_cross launches take up to cross_span steps
+each). Its option `block_elems=` is validated for parity with the
 JAX package, where it routes steps between two kernels; on the card one
 kernel runs every step, so it routes nothing.
 """
@@ -145,9 +146,13 @@ def _make_sbitonic(spec, options):
 
 
 def _smem_usage(kernel: str, numel: int, options: dict, n_arrays: int) -> int:
-    """Dynamic shared memory per block of `kernel`, in bytes."""
-    b, m = resolve_geometry(nlpo2(numel), n_arrays, options)
-    return {"block_sort": b, "multi_stage": m, "pair_cross": 0,
+    """Dynamic shared memory per block of `kernel`, in bytes (pair_cross:
+    its tile, which a launch of more steps than its registers take
+    allocates)."""
+    n = nlpo2(numel)
+    b, m = resolve_geometry(n, n_arrays, options)
+    return {"block_sort": b, "multi_stage": m,
+            "pair_cross": min(bk.cross_rows(n_arrays), n),
             "block_merge": m}[kernel] * 4 * n_arrays
 
 

@@ -9,8 +9,10 @@ Fused schedule (`bitonic_sort_2d`) for n rows, sort block B and merge block M:
   block_sort   stages K = 2 .. B inside each B-block          1 launch
   multi_stage  stages K = 2B .. M inside each M-block         1 launch (M > B)
   per stage K = 2M .. n:
-    pair_cross one step at distance J, for J = K/2 .. M       in device memory
+    pair_cross   steps J = K/2 .. M on gathered tiles         ceil(steps/span)
     block_merge  steps J = M/2 .. 1 inside each M-block       1 launch
+where the span (`cross_span`) is the most steps one pair_cross launch takes
+at the array's column count (`cross_passes` cuts a stage's steps into runs).
 With single_launch=True the same network runs as one cooperative
 `whole_sort` launch (n x columns <= WHOLE_MAX). `sbitonic_sort_2d` runs it
 one `pair_cross` launch per step (K, J), J down to 1.
@@ -73,8 +75,8 @@ def load_kernels():
         lib = ctypes.CDLL(str(path))
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         for name in KERNELS:
-            # (columns, n_cols, num_keys, n, 1 or 2 geometry ints, stream)
-            n_ints = 4 if name == "block_sort" else 5
+            # (columns, n_cols, num_keys, n, 1-3 geometry ints, stream)
+            n_ints = {"block_sort": 4, "pair_cross": 6}.get(name, 5)
             fn = getattr(lib, f"clo_{name}")
             fn.argtypes = [ptrs] + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -84,6 +86,12 @@ def load_kernels():
                for c in range(1, MAX_COLS + 1)):
             raise RuntimeError("csrc/bitonic.cu whole_rows differs from "
                                "bitonic_kernels.whole_rows")
+        lib.clo_cross_span.argtypes = [ctypes.c_int]
+        lib.clo_cross_span.restype = ctypes.c_int
+        if any(lib.clo_cross_span(c) != cross_span(c)
+               for c in range(1, MAX_COLS + 1)):
+            raise RuntimeError("csrc/bitonic.cu cross_span differs from "
+                               "bitonic_kernels.cross_span")
         lib.clo_block_rows.argtypes = [ctypes.c_int] * 2
         lib.clo_block_rows.restype = ctypes.c_int
         lib.clo_block_smem.argtypes = [ctypes.c_int] * 2
@@ -198,9 +206,33 @@ def multi_stage_plain(cols, block: int, merge: int, num_keys: int) -> None:
     _plain_stages(cols, 2 * block, merge, num_keys)
 
 
-def pair_cross_plain(cols, k: int, j: int, num_keys: int) -> None:
-    """Plain version of pair_cross: one step (k, j)."""
-    _plain_step(cols, k, j, num_keys)
+def pair_cross_plain(cols, k: int, j: int, num_keys: int,
+                     j_last: int | None = None) -> None:
+    """Plain version of pair_cross: steps J = j .. j_last (default j) of
+    stage k, in the kernel's tile form. Each column is viewed as
+    (n / 2j, 2j / j_last, j_last): the group of rows whose indices differ
+    only in the bits j_last .. j, the run (the group's member at distance
+    j_last), the offset in the run. The step at distance J pairs runs
+    J / j_last apart along the run axis. A pair's direction is that of its
+    lower row's global index, whose bit k is its group base's: k lies above
+    every J bit."""
+    jl = j if j_last is None else j_last
+    n = cols[0].numel()
+    g, runs = n // (2 * j), 2 * j // jl
+    base = torch.arange(g, device=cols[0].device, dtype=torch.int64) * (2 * j)
+    asc = ((base & k) == 0).view(g, 1, 1, 1)
+    d = runs // 2
+    while d >= 1:
+        views = [c.view(g, runs // (2 * d), 2, d, jl) for c in cols]
+        lo = [v[:, :, 0] for v in views]
+        hi = [v[:, :, 1] for v in views]
+        swap = torch.where(asc, _lex_lt(hi[:num_keys], lo[:num_keys]),
+                           _lex_lt(lo[:num_keys], hi[:num_keys]))
+        for v, lw, h in zip(views, lo, hi):
+            nl, nh = torch.where(swap, h, lw), torch.where(swap, lw, h)
+            v[:, :, 0] = nl
+            v[:, :, 1] = nh
+        d //= 2
 
 
 def block_merge_plain(cols, merge: int, k: int, num_keys: int) -> None:
@@ -238,15 +270,21 @@ def multi_stage_(cols, block: int, merge: int, num_keys: int | None = None):
     return cols
 
 
-def pair_cross_(cols, k: int, j: int, num_keys: int | None = None):
-    """One compare-exchange step at distance j of stage k, in place."""
-    nk, cuda = _check(cols, num_keys, 2 * j)
+def pair_cross_(cols, k: int, j: int, num_keys: int | None = None, *,
+                j_last: int | None = None):
+    """Steps J = j, j/2, .., j_last (default j: one step) of stage k in one
+    launch, in place; at most cross_span(columns) steps."""
+    jl = j if j_last is None else j_last
+    nk, cuda = _check(cols, num_keys, 2 * j, jl)
     if k and (not is_po2(k) or k < 2 * j):
         raise BadArgsError(f"stage {k} must be 0 or a power of two >= 2*{j}")
+    if jl > j or log2_floor(j // jl) >= cross_span(len(cols)):
+        raise BadArgsError(f"steps {j} .. {jl}: j_last <= j, at most "
+                           f"{cross_span(len(cols))} steps a launch")
     if cuda:
-        _launch("pair_cross", cols, nk, k, j)
+        _launch("pair_cross", cols, nk, k, j, jl)
     else:
-        pair_cross_plain(cols, k, j, nk)
+        pair_cross_plain(cols, k, j, nk, jl)
     return cols
 
 
@@ -286,6 +324,43 @@ def block_geometry(n_cols: int, length: int) -> tuple[int, int, int]:
     rows = full if length >= 32 * full else 1
     shift = 31 if n_cols == 7 else 5
     return length // rows, rows, n_cols * (length + (length >> shift)) * 4
+
+
+CROSS_TILE_BYTES = 96 * 1024  # csrc/bitonic.cu CROSS_TILE_BYTES
+
+
+def cross_rows(n_cols: int) -> int:
+    """Rows of a multi-step pair_cross tile at n_cols columns: the largest
+    power of two whose columns fit CROSS_TILE_BYTES (csrc/bitonic.cu
+    cross_rows)."""
+    rows = 1
+    while 2 * rows * n_cols * 4 <= CROSS_TILE_BYTES:
+        rows *= 2
+    return rows
+
+
+def cross_span(n_cols: int) -> int:
+    """Steps one pair_cross launch may take at n_cols columns (csrc/
+    bitonic.cu cross_span, which load_kernels checks against this):
+    log2(cross_rows / 32), so that the tile's gathered runs stay 32 rows (a
+    128-byte line) or longer. 9 at one column, 6 at 8."""
+    return log2_floor(cross_rows(n_cols) // 32)
+
+
+def cross_passes(k: int, j_hi: int, m: int,
+                 span: int) -> list[tuple[int, int]]:
+    """The pair_cross launches (j, j_last) of stage k's cross steps
+    J = j_hi .. m: runs of at most `span` steps, highest J first, so
+    ceil(steps / span) of them (none when m > j_hi)."""
+    if k and k < 2 * j_hi:
+        raise BadArgsError(f"stage {k} below 2 x {j_hi}")
+    runs = []
+    j = j_hi
+    while j >= m:
+        jl = max(j >> (span - 1), m)
+        runs.append((j, jl))
+        j = jl // 2
+    return runs
 
 
 def whole_rows(n_cols: int) -> int:
@@ -363,12 +438,11 @@ def bitonic_sort_2d(cols, *, block_elems: int, merge_elems: int,
     block_sort_(cols, b, num_keys)
     if m > b:
         multi_stage_(cols, b, m, num_keys)
+    span = cross_span(len(cols))
     for sk in range(log2_floor(m) + 1, log2_floor(n) + 1):
         k = 1 << sk
-        j = k // 2
-        while j >= m:
-            pair_cross_(cols, k, j, num_keys)
-            j //= 2
+        for j, jl in cross_passes(k, k // 2, m, span):
+            pair_cross_(cols, k, j, num_keys, j_last=jl)
         block_merge_(cols, m, k, num_keys)
     return cols
 
@@ -380,10 +454,8 @@ def bitonic_merge_2d(cols, *, merge_elems: int, num_keys: int | None = None):
     if n <= 1:
         return cols
     m = min(merge_elems, n)
-    j = n // 2
-    while j >= m:
-        pair_cross_(cols, 0, j, num_keys)
-        j //= 2
+    for j, jl in cross_passes(0, n // 2, m, cross_span(len(cols))):
+        pair_cross_(cols, 0, j, num_keys, j_last=jl)
     return block_merge_(cols, m, 0, num_keys)
 
 
@@ -410,16 +482,22 @@ def sbitonic_steps(n: int) -> int:
     return lg * (lg + 1) // 2
 
 
-def sweeps(n: int, block_elems: int, merge_elems: int) -> dict[str, int]:
-    """Launches of each fused-schedule kernel in bitonic_sort_2d (each one
-    sweep)."""
+def sweeps(n: int, block_elems: int, merge_elems: int,
+           n_cols: int = 1) -> dict[str, int]:
+    """Launches of each fused-schedule kernel in bitonic_sort_2d over
+    n_cols columns (each one sweep): the s-th stage above the merge block
+    has s cross steps, in its cross_passes' ceil(s / cross_span)
+    pair_cross launches."""
     if n <= 1:
         return dict.fromkeys(FUSED, 0)
     b = min(block_elems, n)
     m = max(min(merge_elems, n), b)
     stages = log2_floor(n) - log2_floor(m)
-    return {"block_sort": 1, "multi_stage": int(m > b),
-            "pair_cross": stages * (stages + 1) // 2, "block_merge": stages}
+    span = cross_span(n_cols)
+    cross = sum(len(cross_passes(m << s, m << (s - 1), m, span))
+                for s in range(1, stages + 1))
+    return {"block_sort": 1, "multi_stage": int(m > b), "pair_cross": cross,
+            "block_merge": stages}
 
 
 def fused_traffic_bytes(n_padded: int, n_arrays: int, block_elems: int,
@@ -430,15 +508,18 @@ def fused_traffic_bytes(n_padded: int, n_arrays: int, block_elems: int,
     per = 2 * n_padded * 4 * n_arrays
     if single_launch:
         return per
-    return per * sum(sweeps(n_padded, block_elems, merge_elems).values())
+    return per * sum(sweeps(n_padded, block_elems, merge_elems,
+                            n_arrays).values())
 
 
 def merge_traffic_bytes(n_padded: int, n_arrays: int,
                         merge_elems: int) -> int:
-    """Device-memory bytes of bitonic_merge_2d (pair steps + one merge)."""
+    """Device-memory bytes of bitonic_merge_2d (its pair_cross launches +
+    one merge)."""
     per = 2 * n_padded * 4 * n_arrays
-    levels = log2_floor(max(n_padded // merge_elems, 1))
-    return (levels + 1) * per
+    passes = cross_passes(0, n_padded // 2, merge_elems,
+                          cross_span(n_arrays))
+    return (len(passes) + 1) * per
 
 
 def pad_and_reshape(cols, pad_values):

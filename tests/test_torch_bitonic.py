@@ -233,12 +233,18 @@ def test_pad_safe_unique_prefix():
 
 
 def test_traffic_and_launch_model():
+    # 9 stages above the merge block, 1..9 cross steps: one pair_cross
+    # launch each at one column's span of 9
     s = tbk.sweeps(1 << 24, 1 << 13, 1 << 15)
-    assert s == {"block_sort": 1, "multi_stage": 1, "pair_cross": 45,
+    assert s == {"block_sort": 1, "multi_stage": 1, "pair_cross": 9,
                  "block_merge": 9}
     assert tbk.fused_traffic_bytes(1 << 24, 1, 1 << 13, 1 << 15) == \
-        56 * 2 * 4 * (1 << 24)
-    assert tbk.merge_traffic_bytes(1 << 12, 1, 1 << 10) == 3 * 2 * 4 * 4096
+        20 * 2 * 4 * (1 << 24)
+    # KV 16M (3 columns, span 8): 10 stages; GROUP BY 256M (2 columns,
+    # span 8): 14 stages
+    assert tbk.sweeps(1 << 24, 1 << 12, 1 << 14, 3)["pair_cross"] == 12
+    assert tbk.sweeps(1 << 28, 1 << 12, 1 << 14, 2)["pair_cross"] == 20
+    assert tbk.merge_traffic_bytes(1 << 12, 1, 1 << 10) == 2 * 2 * 4 * 4096
 
 
 def test_psort_column_helpers_match_reference():
@@ -263,8 +269,8 @@ def test_psort_column_helpers_match_reference():
     np.testing.assert_array_equal(
         tps.flag_pos_key(torch.from_numpy(flag), 500).numpy(),
         np.asarray(jps.flag_pos_key(jnp.asarray(flag), 500)))
-    # 56 sweeps of one 16M column, plus the padded copy
-    assert tps.sort_traffic_bytes(1 << 24, 1) == 57 * 2 * 4 * (1 << 24)
+    # 20 sweeps of one 16M column, plus the padded copy
+    assert tps.sort_traffic_bytes(1 << 24, 1) == 21 * 2 * 4 * (1 << 24)
 
 
 def test_wrapper_argument_checks():

@@ -16,7 +16,9 @@ tile-start flags, and back to back; the
 block scans at lengths 0, 1 and ragged tails; rank_hist with short tiles,
 radix 4-256 and digits outside the bins; rank_hist_limb at every shift of
 radix 4-256 and tiles of 512-16384 rows, and satradix's one launch of it
-a pass; pair_cross at distances 1-32;
+a pass; pair_cross at distances 1-32, its runs at every span at 1, 2,
+3 and 8 columns over 512 to 2^22 rows, and the fused sort's and merge's
+launches against sweeps();
 whole_sort up to its capacity and past it; the five sorters against numpy,
 and autotune with its cache in a temporary file; dense_agg at 1 to 1024
 groups with masks, u32 flips, float32 limbs and more reductions than one
@@ -771,6 +773,108 @@ def test_pair_cross_small_distances(cuda, j, n_cols, num_keys, hi):
         _run_both(cols, lambda c: bk.pair_cross_(c, k, j, num_keys),
                   lambda c: bk.pair_cross_plain(c, k, j, num_keys), cuda)
     assert bk.launches["pair_cross"] == 3
+
+
+@pytest.mark.parametrize("n", [512, 1 << 16, 1 << 22])
+@pytest.mark.parametrize("n_cols,num_keys,hi", [
+    (1, 1, 2 ** 31), (2, 1, 4), (3, 2, 3), (8, 3, 2)])
+def test_pair_cross_runs_match_plain(cuda, n, n_cols, num_keys, hi):
+    """Every span 1 .. cross_span in one launch against the tile-form plain
+    version on the card: the top stage's gathered runs (K = n, J = n/2
+    down), the final merge's (K = 0, J = n/4 down) and a contiguous tile's
+    short distances (K = 4J, J = 2^(span+1) down to 4), with key prefixes
+    full of ties."""
+    cols = [c.to(cuda) for c in _cols(n, n_cols, n + n_cols, hi)]
+    bk.reset_launches()
+    runs = 0
+    for span in range(1, bk.cross_span(n_cols) + 1):
+        for k, j in ((n, n // 2), (0, n // 4), (1 << span + 3, 1 << span + 1)):
+            jl = j >> (span - 1)
+            if jl < 1 or 2 * j > n:
+                continue
+            got = [c.clone() for c in cols]
+            want = [c.clone() for c in cols]
+            bk.pair_cross_(got, k, j, num_keys, j_last=jl)
+            bk.pair_cross_plain(want, k, j, num_keys, jl)
+            torch.cuda.synchronize()
+            runs += 1
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (span, k, j)
+    assert runs > 0 and bk.launches["pair_cross"] == runs
+
+
+def test_pair_cross_run_at_max_len(cuda):
+    """A full-span pass over MAX_LEN = 2^30 rows (group bases up to 2^30,
+    stage K = 2^30 and the K = 0 merge): its index arithmetic stays in 32
+    bits. Checked against the plain version on the card."""
+    n = bk.MAX_LEN
+    span = bk.cross_span(1)
+    src = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), dtype=torch.int32,
+                        device=cuda, generator=torch.Generator(
+                            device=cuda).manual_seed(5))
+    bk.reset_launches()
+    for k, j in ((n, n // 2), (0, n // 4)):
+        got, want = [src.clone()], [src.clone()]
+        bk.pair_cross_(got, k, j, j_last=j >> (span - 1))
+        bk.pair_cross_plain(want, k, j, 1, j >> (span - 1))
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), (k, j)
+        del got, want
+    assert bk.launches["pair_cross"] == 2
+
+
+@pytest.mark.parametrize("n_cols,num_keys,merge", [
+    (1, None, None), (3, 2, None), (1, None, 1024), (2, 1, 256)])
+def test_bitonic_sort_2d_launches_equal_sweeps(cuda, n_cols, num_keys, merge):
+    """The fused sort of 2^20 rows launches what sweeps() says: at the
+    default geometry one pair_cross a stage, at small merge blocks the
+    longest stages in two; sorted as numpy's lexsort (key prefix) with
+    every row kept."""
+    from cl_ops_tpu_torch.ops.sort import bitonic as bt
+    n = 1 << 20
+    cols = _cols(n, n_cols, 40 + n_cols, 2 ** 31 if num_keys is None else 5)
+    if n_cols > 1:
+        cols[-1] = torch.arange(n, dtype=torch.int32)
+    b, m = bt.resolve_geometry(n, n_cols)
+    if merge is not None:
+        b, m = merge // 4, merge
+    on = [c.to(cuda) for c in cols]
+    bk.reset_launches()
+    bk.bitonic_sort_2d(on, block_elems=b, merge_elems=m, num_keys=num_keys)
+    torch.cuda.synchronize()
+    want = bk.sweeps(n, b, m, n_cols)
+    assert {k: bk.launches[k] for k in bk.FUSED} == want
+    stages = (n // m).bit_length() - 1
+    assert want["pair_cross"] == sum(-(-s // bk.cross_span(n_cols))
+                                     for s in range(1, stages + 1))
+    nk = n_cols if num_keys is None else num_keys
+    got = [c.cpu().numpy() for c in on]
+    keys = [c.numpy() for c in cols[:nk]]
+    order = np.lexsort(keys[::-1])
+    for g, c in zip(got[:nk], cols[:nk]):
+        np.testing.assert_array_equal(g, c.numpy()[order])
+    if n_cols > 1:  # every row kept, whole
+        idx = got[-1].astype(np.int64)
+        assert np.array_equal(np.sort(idx), np.arange(n))
+        for g, c in zip(got[:-1], cols[:-1]):
+            np.testing.assert_array_equal(g, c.numpy()[idx])
+
+
+def test_bitonic_merge_2d_runs_on_card(cuda):
+    """The final merge of a bitonic sequence (stage K = 0) in
+    ceil(steps / span) pair_cross launches and one block_merge."""
+    n, m = 1 << 22, 1024
+    rng = np.random.default_rng(41)
+    a = np.sort(rng.integers(-2 ** 31, 2 ** 31, n // 2)).astype(np.int32)
+    b = np.sort(rng.integers(-2 ** 31, 2 ** 31, n // 2)).astype(np.int32)
+    seq = np.concatenate([a, b[::-1]])
+    on = [torch.from_numpy(seq).to(cuda)]
+    bk.reset_launches()
+    bk.bitonic_merge_2d(on, merge_elems=m)
+    torch.cuda.synchronize()
+    assert bk.launches["pair_cross"] == -(-12 // bk.cross_span(1)) == 2
+    assert bk.launches["block_merge"] == 1
+    np.testing.assert_array_equal(on[0].cpu().numpy(), np.sort(seq))
 
 
 @pytest.mark.parametrize("n,n_cols,num_keys,hi", [

@@ -193,7 +193,7 @@ def test_introspection():
         "block_sort", "multi_stage", "pair_cross", "block_merge"]
     assert s.smem_usage("block_sort", 1 << 20) == (1 << 13) * 4
     assert s.smem_usage("block_merge", 1 << 20) == (1 << 15) * 4
-    assert s.smem_usage("pair_cross", 1 << 20) == 0
+    assert s.smem_usage("pair_cross", 1 << 20) == (1 << 14) * 4
     assert tsort.sort_new("abitonic", elem_dtype="ulong").smem_usage(
         "multi_stage", 1 << 20) == (1 << 14) * 4 * 2
     assert s.elem_dtype == s.key_dtype == torch.uint32
