@@ -1,0 +1,11 @@
+"""The groupby operator's share of its roofline, in percent: the least time
+its calls' bytes take at the published peak (portbench/roofline.py, from
+the shapes and the reference's counts) over the device time in its
+spans."""
+
+
+def read(t):
+    dev, bound = t["layer_s"].get("groupby"), t["bound_s"].get("groupby")
+    if not dev or not bound:
+        return None
+    return 100.0 * bound / dev

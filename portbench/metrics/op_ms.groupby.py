@@ -1,0 +1,6 @@
+"""Device milliseconds a query in the groupby operator's spans."""
+
+
+def read(t):
+    s = t["layer_s"].get("groupby")
+    return None if s is None else s * 1e3 / t["queries"]
