@@ -29,6 +29,7 @@ from cl_ops_tpu_torch.ops.scan.kernels import scan_1d
 from cl_ops_tpu_torch.ops.scan.segmented import segmented_scan_1d
 from cl_ops_tpu_torch.ops.sort import keys as keymod
 from cl_ops_tpu_torch.utils import intmath
+from cl_ops_tpu_torch.utils.profiling import spanned
 
 _AGGS = ("sum", "count", "min", "max", "mean")
 
@@ -110,6 +111,7 @@ def _check_key_bits(keys: torch.Tensor, key_bits: int) -> None:
 
 # --- direct ------------------------------------------------------------------
 
+@spanned("clo.op:groupby")
 def group_aggregate_direct(group_ids: torch.Tensor, values: torch.Tensor, *,
                            num_groups: int, agg: str = "sum") -> torch.Tensor:
     """Aggregate values by dense int group id in [0, num_groups).
@@ -174,6 +176,7 @@ def _sorted_aggregate(keys, values, *, num_groups: int, agg: str):
                             vals_in_key_order=need_order)
 
 
+@spanned("clo.op:groupby")
 def group_aggregate_prefix(keys, values, n_valid, *, num_groups: int,
                            agg: str = "sum", key_bits: int | None = None):
     """Aggregate only the first n_valid rows (the filter_compact composer).
@@ -226,6 +229,7 @@ def _empty(keys, num_groups: int, table_dtypes):
             torch.zeros((), dtype=torch.int32, device=dev))
 
 
+@spanned("clo.op:groupby")
 def group_aggregate_sorted(keys, values, *, num_groups: int, agg: str = "sum",
                            sorter=None, keys_sorted: bool = False):
     """Aggregate values by arbitrary key: sort -> boundary scan -> reduce.
@@ -254,6 +258,7 @@ def group_aggregate_sorted(keys, values, *, num_groups: int, agg: str = "sum",
     return _boundary_reduce(skeys, svals, num_groups=num_groups, agg=agg)
 
 
+@spanned("clo.op:groupby")
 def group_aggregate_cols(keys, values, aggs, *, num_groups: int,
                          n_valid=None, valid_mask=None,
                          keys_sorted: bool = False,

@@ -15,12 +15,14 @@ import torch
 
 from cl_ops_tpu_torch.core.errors import BadArgsError, BadDtypeError
 from cl_ops_tpu_torch.ops.exec import psort
+from cl_ops_tpu_torch.utils.profiling import spanned
 
 # flag*n + pos stays exact while 2n < _PACK_MAX; beyond it the rank uses
 # two columns. Module-level so tests can shrink it to cover the wide path.
 _PACK_MAX = 2 ** 31
 
 
+@spanned("clo.op:filter")
 def filter_compact(data: torch.Tensor, predicate: Callable, *extra_cols):
     """Keep rows where predicate(data) holds, compacted to the front.
 

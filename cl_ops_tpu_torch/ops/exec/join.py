@@ -35,6 +35,7 @@ merge path here restores through a two-column sort instead.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -47,6 +48,7 @@ from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
 from cl_ops_tpu_torch.ops.sort import keys as keymod
 from cl_ops_tpu_torch.utils import intmath
 from cl_ops_tpu_torch.utils.bits import cdiv, nlpo2
+from cl_ops_tpu_torch.utils.profiling import named, spanned
 
 _I32_MIN = -0x80000000
 _I32_MAX = 0x7FFFFFFF
@@ -230,14 +232,25 @@ def _banded_passes(bl, vals_i32, plimbs, passes, extra_cols=(),
             tuple(bl), tuple(vals_i32), tuple(fn(sp_limbs)), probe_rows=pr)
         if defer_overflow:
             ovf_any = ovf_any | ovf
-        elif bool(ovf):  # extreme skew: window exceeded -> merge fallback
-            return None, None, None, None, None
+        else:
+            with named("clo.sync:band_overflow"):
+                over = bool(ovf)
+            if over:  # extreme skew: window exceeded -> merge fallback
+                return None, None, None, None, None
         results.append((count, eq, vp, vn))
     return spos, sp_limbs, results, scols, ovf_any
 
 
 def _minus_one(limbs):
     return _limbs_minus_one(tuple(limbs))[0]
+
+
+def _merge_span(strat: str):
+    """The merge probe's span: `clo.join:fallback` where it runs after a
+    band overflow, none where it is the chosen strategy."""
+    if strat == "merge":
+        return contextlib.nullcontext()
+    return named("clo.join:fallback")
 
 
 def _probe_sorted(build_keys, build_vals, probe_keys, probe_impl: str,
@@ -281,8 +294,9 @@ def _probe_sorted(build_keys, build_vals, probe_keys, probe_impl: str,
                                       num_keys=1, pad_safe=True)
             return (out[1] > 0, _val_from_cols(out[2:], vdt), None, None,
                     ovf)
-    _, eq, val_prev, _, spos = _merge_rank(bl, vcols, plimbs,
-                                           sorted_output=sorted_output)
+    with _merge_span(strat):
+        _, eq, val_prev, _, spos = _merge_rank(bl, vcols, plimbs,
+                                               sorted_output=sorted_output)
     return eq, _val_from_cols(val_prev, vdt), spos, None, no_ovf
 
 
@@ -340,19 +354,20 @@ def _probe_sorted_multi(build_keys, build_vals, probe_keys, probe_impl: str,
     # merge: its two passes sort the probes independently (by key and by
     # key-1, which may order min and min+1 keys differently), so compute in
     # original order and sort once for sorted_output
-    ub = _merge_rank(bl, vcols, plimbs)[0]
-    pm1, is_min = _limbs_minus_one(plimbs)
-    lb, _, _, vns, _ = _merge_rank(bl, vcols, pm1)
-    count = ub - torch.where(is_min, 0, lb)
-    val_cols = first_match_fix(is_min, vns)
-    if sorted_output:  # (limbs, position) is a total order
-        m = plimbs[0].numel()
-        nl = len(plimbs)
-        out = psort.sort_i32_cols((*plimbs, _arange(m, dev), count,
-                                   *val_cols), num_keys=nl + 1,
-                                  pad_safe=True)
-        return (out[nl + 1], _val_from_cols(out[nl + 2:], vdt), out[nl],
-                None, no_ovf)
+    with _merge_span(strat):
+        ub = _merge_rank(bl, vcols, plimbs)[0]
+        pm1, is_min = _limbs_minus_one(plimbs)
+        lb, _, _, vns, _ = _merge_rank(bl, vcols, pm1)
+        count = ub - torch.where(is_min, 0, lb)
+        val_cols = first_match_fix(is_min, vns)
+        if sorted_output:  # (limbs, position) is a total order
+            m = plimbs[0].numel()
+            nl = len(plimbs)
+            out = psort.sort_i32_cols((*plimbs, _arange(m, dev), count,
+                                       *val_cols), num_keys=nl + 1,
+                                      pad_safe=True)
+            return (out[nl + 1], _val_from_cols(out[nl + 2:], vdt), out[nl],
+                    None, no_ovf)
     return count, _val_from_cols(val_cols, vdt), None, None, no_ovf
 
 
@@ -387,6 +402,7 @@ def _default_build_sorter(dtype: torch.dtype):
                     elem_dtype=dtype)
 
 
+@spanned("clo.op:join")
 def hash_join(build_keys, build_vals, probe_keys, *, build_sorted=False,
               sorter=None, unique_build: bool = True,
               join_type: str = "inner", probe_impl: str = "auto",
@@ -479,18 +495,20 @@ def _ranges_sorted(bl, vals_i32, plimbs, probe_impl: str):
     sorted order; the merge fallback computes in original order and sorts
     (limbs, position, ub, lb) once to align."""
     nl = len(plimbs)
-    if _probe_strategy(bl[0].numel(), probe_impl) in ("direct", "banded"):
+    strat = _probe_strategy(bl[0].numel(), probe_impl)
+    if strat in ("direct", "banded"):
         spos, sp_limbs, res, _, _ = _banded_passes(
             bl, vals_i32, plimbs, [lambda s: s, _minus_one])
         if res is not None:
             _, is_min = _limbs_minus_one(sp_limbs)
             return spos, res[0][0], torch.where(is_min, 0, res[1][0])
-    ub = _merge_rank(bl, vals_i32, plimbs)[0]
-    pm1, is_min = _limbs_minus_one(plimbs)
-    lb = torch.where(is_min, 0, _merge_rank(bl, vals_i32, pm1)[0])
-    out = psort.sort_i32_cols(
-        (*plimbs, _arange(plimbs[0].numel(), ub.device), ub, lb),
-        num_keys=nl + 1, pad_safe=True)
+    with _merge_span(strat):
+        ub = _merge_rank(bl, vals_i32, plimbs)[0]
+        pm1, is_min = _limbs_minus_one(plimbs)
+        lb = torch.where(is_min, 0, _merge_rank(bl, vals_i32, pm1)[0])
+        out = psort.sort_i32_cols(
+            (*plimbs, _arange(plimbs[0].numel(), ub.device), ub, lb),
+            num_keys=nl + 1, pad_safe=True)
     return out[nl], out[nl + 1], out[nl + 2]
 
 
@@ -540,14 +558,18 @@ def _expand_from_ranges_banded(spos, ub, lb, svcols, capacity: int):
                        torch.clamp(total - 1, min=0))
     j, _, vps, vns, ovf1 = bandprobe.probe_banded_sorted(
         (prefix_inc,), (prefix_inc, lb, spos), (rq,), probe_rows=pr)
-    if bool(ovf1):
+    with named("clo.sync:expand_overflow"):
+        over = bool(ovf1)
+    if over:
         return None
     bpos, blo, bhi = _expand_pass2_inputs(vns[1], rq, j, vps[0], nb,
                                           pr * bandprobe.ROW)
     _, _, valsr, _, ovf2 = bandprobe.probe_banded_sorted(
         (_arange(nb, ub.device),), tuple(svcols), (bpos,), probe_rows=pr,
         block_bounds=((blo,), (bhi,)))
-    if bool(ovf2):  # sparse: a direct gather instead of the band windows
+    with named("clo.sync:expand_overflow"):
+        over = bool(ovf2)
+    if over:  # sparse: a direct gather instead of the band windows
         valsr = tuple(v[bpos.to(torch.int64)] for v in svcols)
     return _expand_glue(vns[2], valsr, prefix_inc, capacity)
 
@@ -574,6 +596,7 @@ def _expand_from_ranges(spos, ub, lb, svcols, capacity: int):
     return _expand_glue(spos[jc], vals, prefix_inc, capacity)
 
 
+@spanned("clo.op:join")
 def hash_join_expand(build_keys, build_vals, probe_keys, *, capacity: int,
                      build_sorted=False, sorter=None,
                      probe_impl: str = "auto"):
@@ -615,7 +638,8 @@ def hash_join_expand(build_keys, build_vals, probe_keys, *, capacity: int,
     spos, ub, lb = _ranges_sorted(bl, vcols, _limbs(probe_keys), probe_impl)
     out = _expand_from_ranges_banded(spos, ub, lb, vcols, capacity)
     if out is None:  # pass-1 band overflow
-        out = _expand_from_ranges(spos, ub, lb, vcols, capacity)
+        with named("clo.join:fallback"):
+            out = _expand_from_ranges(spos, ub, lb, vcols, capacity)
     total, pidx, vals = out
     return total, pidx, _val_from_cols(vals, build_vals.dtype)
 

@@ -17,6 +17,8 @@ import torch
 
 from cl_ops_tpu_torch.ops.sort import bitonic as _bt
 from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
+from cl_ops_tpu_torch.utils.bits import nlpo2
+from cl_ops_tpu_torch.utils.profiling import named
 
 # i32 max pads sort after every real row (see sort_i32_cols for the tie).
 _PAD = 0x7FFFFFFF
@@ -135,17 +137,18 @@ def sort_i32_cols(cols, *, num_keys: int | None = None,
         return (*out[:-1], *(from_i32(as_i32(c)[perm], c.dtype)
                              for c in cols[num_keys:]))
     dts = [c.dtype for c in cols]
-    bufs, padded = bk.pad_and_reshape([as_i32(c) for c in cols],
-                                      [_PAD] * len(cols))
-    if num_keys is not None and (num_keys >= len(cols) or
-                                 (padded != n and not pad_safe)):
-        num_keys = None  # total comparator: no payload, or pad-tie risk
-    opts = {k: str(v) for k, v in (("block_elems", block_elems),
-                                   ("merge_elems", merge_elems))
-            if v is not None}
-    if os.environ.get("CL_OPS_PSORT_AUTOTUNE") == "1":
-        opts["autotune"] = "1"
-    b, m, sl = _bt.sort_plan(padded, len(bufs), opts, bufs[0].device)
-    bk.bitonic_sort_2d(bufs, block_elems=b, merge_elems=m, num_keys=num_keys,
-                       single_launch=sl)
-    return tuple(from_i32(a[:n], dt) for a, dt in zip(bufs, dts))
+    with named("clo.sort", n=n, padded=nlpo2(n), cols=len(cols)):
+        bufs, padded = bk.pad_and_reshape([as_i32(c) for c in cols],
+                                          [_PAD] * len(cols))
+        if num_keys is not None and (num_keys >= len(cols) or
+                                     (padded != n and not pad_safe)):
+            num_keys = None  # total comparator: no payload, or pad-tie risk
+        opts = {k: str(v) for k, v in (("block_elems", block_elems),
+                                       ("merge_elems", merge_elems))
+                if v is not None}
+        if os.environ.get("CL_OPS_PSORT_AUTOTUNE") == "1":
+            opts["autotune"] = "1"
+        b, m, sl = _bt.sort_plan(padded, len(bufs), opts, bufs[0].device)
+        bk.bitonic_sort_2d(bufs, block_elems=b, merge_elems=m,
+                           num_keys=num_keys, single_launch=sl)
+        return tuple(from_i32(a[:n], dt) for a, dt in zip(bufs, dts))

@@ -32,6 +32,7 @@ from cl_ops_tpu_torch.core.errors import BadArgsError
 from cl_ops_tpu_torch.ops.exec import psort
 from cl_ops_tpu_torch.ops.exec.aggregate import _boundary_reduce_cols
 from cl_ops_tpu_torch.ops.sort import keys as keymod
+from cl_ops_tpu_torch.utils.profiling import named, spanned
 
 W, KB = 1024, 4        # extraction block width and survivors per block
 _I32_MAX = 0x7FFFFFFF
@@ -42,6 +43,7 @@ _I32_MAX = 0x7FFFFFFF
 last_branch = None
 
 
+@spanned("clo.op:topk")
 def top_k(values, k: int, *payload_cols, largest: bool = False,
           oversample: int = 4, sample_size: int = 16384):
     """The k extreme rows of `values`, sorted, with payload columns.
@@ -117,7 +119,9 @@ def top_k(values, k: int, *payload_cols, largest: bool = False,
                                  _I32_MAX)[:, 0])
         cposs.append(torch.where(has & (gpos < n), gpos, n)[:, 0])
         mm.scatter_(1, first, 0)
-    ok = bool((cnt_b.sum() >= k) & ~(cnt_b > KB).any() & (t < _I32_MAX))
+    ok = (cnt_b.sum() >= k) & ~(cnt_b > KB).any() & (t < _I32_MAX)
+    with named("clo.sync:topk_check"):
+        ok = bool(ok)
     if not ok:
         last_branch = "exact"
         return exact([limb])

@@ -26,6 +26,7 @@ from cl_ops_tpu_torch.ops.sort import autotune
 from cl_ops_tpu_torch.ops.sort import bitonic_kernels as bk
 from cl_ops_tpu_torch.ops.sort.abstract import SortImplDef, sort_impls
 from cl_ops_tpu_torch.utils.bits import is_po2, nlpo2
+from cl_ops_tpu_torch.utils.profiling import named
 
 # i32 max: pads sort after every real key; pad payloads also get this value.
 _PAD = 0x7FFFFFFF
@@ -113,13 +114,14 @@ def _pad_and_sort(limbs, payload, sort):
     sort(cols, num_keys), and cut the padding off again."""
     cols = list(limbs) + ([payload] if payload is not None else [])
     n = cols[0].numel()
-    cols, padded = bk.pad_and_reshape(cols, [_PAD] * len(cols))
-    # KV sorts: the payload only moves (num_keys). Padding keeps the total
-    # comparator: a real all-i32-max key row would tie the pad rows on the
-    # prefix alone.
-    nk = len(limbs) if (payload is not None and padded == n) else None
-    sort(cols, nk)
-    flat = [c[:n] for c in cols]
+    with named("clo.sort", n=n, padded=nlpo2(n), cols=len(cols)):
+        cols, padded = bk.pad_and_reshape(cols, [_PAD] * len(cols))
+        # KV sorts: the payload only moves (num_keys). Padding keeps the
+        # total comparator: a real all-i32-max key row would tie the pad
+        # rows on the prefix alone.
+        nk = len(limbs) if (payload is not None and padded == n) else None
+        sort(cols, nk)
+        flat = [c[:n] for c in cols]
     return (tuple(flat[:len(limbs)]),
             flat[len(limbs)] if payload is not None else None)
 
