@@ -3,11 +3,12 @@
 
 Builds the CUDA kernels from `cl_ops_tpu_torch/csrc/` (bitonic.cu, scan.cu,
 bandprobe.cu, radix.cu, dense_agg.cu and chunk_copy.cu, one nvcc per
-source, started together), holds each of the fifteen kernel entry points
+source, started together), holds each of the sixteen kernel entry points
 against its plain PyTorch version at the main path's shapes (with each
 kernel's own device time from torch.profiler beside its event time;
 pair_cross at single steps and at every span of its runs of a stage's
-cross steps), drives the main path
+cross steps; the filter's partition at SSB Q2's and TPC-H Q18's
+compactions, beside `torch.cat([c[m], c[~m]])`), drives the main path
 (abitonic sort of 16M u32 keys, KV sort of 16M u64 keys with u32 values,
 sort_pipeline at 16M, filter_compact over 64M rows at 10% selectivity,
 GROUP BY of 256M rows into 1M groups, analytics_query over 64M rows,
@@ -103,6 +104,12 @@ EXPAND_M, EXPAND_NB = 1 << 24, 1 << 22  # bench_all.py config 6
 ROLLUP_N, ROLLUP_DIM = 1 << 24, 1 << 20  # bench_all.py config 7
 STAR_N, STAR_DIM, STAR_CATS = 1 << 24, 1 << 14, 256  # README star_query
 BLOCK_SCAN_N = 1 << 26  # scan_bench.py: the top of its default sweep
+# the partition at the benchmark's compactions (portbench, PERF.md section
+# 4): SSB SF 20 Q2.1's matched lineorders (120M rows, one int32 column,
+# 960,938 kept) and TPC-H SF 10 Q18's HAVING over its 15M groups (int32 key
+# and int64 sum, 630 kept)
+PART_CELLS = {"q2": (120_000_000, 960_938, ("int32",)),
+              "q18": (15_000_000, 630, ("int32", "int64"))}
 DENSE_N, DENSE_GROUPS = 1 << 24, (4, 8, 200, 1024)  # dense_agg's kernel phase
 Q1D_N = 1 << 26              # TPC-H Q1 over lineitem at about SF 10
 DENSE_BIG_N = 1 << 26        # DENSE_MAX_GROUPS groups
@@ -186,7 +193,7 @@ DEVICE_KERNEL = {
     "scan_block": "scan_block_tiles", "scan_block_wide": "scan_block_tiles",
     "probe_band": "probe_band_kernel", "rank_hist": "rank_hist_kernel",
     "rank_hist_limb": "rank_hist_kernel", "dense_agg": "dense_agg_kernel",
-    "chunk_copy": "chunk_copy_kernel",
+    "chunk_copy": "chunk_copy_kernel", "partition": "partition_",
 }
 
 
@@ -222,7 +229,8 @@ PROFILED_MS = dict.fromkeys(sorted(set(DEVICE_KERNEL.values())), 0.0)
 
 KERNEL_GROUPS = (("bitonic", ("block_sort", "multi_stage", "pair_cross",
                               "block_merge", "whole_sort")),
-                 ("scan", ("seg_tiles", "carry_tiles", "scan_block_tiles")),
+                 ("scan", ("seg_tiles", "carry_tiles", "scan_block_tiles",
+                           "partition_")),
                  ("join", ("probe_band",)),
                  ("radix", ("rank_hist",)),
                  ("dense", ("dense_agg",)),
@@ -532,6 +540,42 @@ def block_scan_records(dev, n):
             f"n={n} uint32 -> 64-bit sums exclusive")}
 
 
+def partition_records(dev):
+    """partition against its plain version, bit for bit, at PART_CELLS'
+    shapes (kept rows at random places), timed beside its bound (the mask
+    twice, each column in and out once) and the library's
+    `torch.cat([c[m], c[~m]])` of each column."""
+    import torch
+    from cl_ops_tpu_torch.ops.scan import kernels as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    recs = {}
+    for tag, (n, kept, dtypes) in PART_CELLS.items():
+        mask = torch.zeros(n, dtype=torch.bool, device=dev)
+        mask[torch.randperm(n, device=dev, generator=gen)[:kept]] = True
+        cols = [torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), device=dev,
+                              generator=gen).to(getattr(torch, d))
+                for d in dtypes]
+        got = sk.partition(mask, cols)
+        want = sk.partition_plain(mask, cols)
+        torch.cuda.synchronize()
+        if int(got[0]) != kept or not all(
+                torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"partition {tag}: kernel differs from "
+                                 "its plain version")
+        del got, want
+        widths = tuple(c.element_size() for c in cols)
+        recs[f"partition {tag}"] = kernel_record(
+            "partition", "cl_ops_tpu_torch/csrc/scan.cu", 0,
+            kernel_ms("partition", lambda: sk.partition(mask, cols), 7),
+            cuda_ms(lambda: sk.partition_plain(mask, cols), 3),
+            sk.partition_traffic_bytes(n, widths), 0,
+            cuda_ms(lambda: [torch.cat([c[mask], c[~mask]]) for c in cols],
+                    7),
+            f"n={n} kept={kept} columns={'+'.join(dtypes)}")
+        del mask, cols
+    return recs
+
+
 def report(cell, fn, reps, model_bytes, launches, rows, **extra):
     """Time a cell's call with CUDA events, trace it once, and print its
     line: ms, Mrows/s, model bytes and their bound, launches."""
@@ -728,7 +772,7 @@ def join_cells(dev, reset, count):
             interop.to_numpy(s_table).astype(np.uint64), want))
         del keys, vals, s_table
         report(f"star_query {n} dim {nd}", star, 3,
-               psort.sort_traffic_bytes(n, 3)
+               sk.partition_traffic_bytes(n, (4, 4))
                + bp.band_pass_traffic_bytes(n, 1, nd)
                + psort.sort_traffic_bytes(n, 2)
                + sk.scan_traffic_bytes(n, torch.uint32), launches, n,
@@ -2498,6 +2542,11 @@ def main() -> int:
         for r in scan_recs.values():
             print("kernel", json.dumps(r))
 
+    with phase("partition kernel vs plain"):
+        part_recs = partition_records(dev)
+        for r in part_recs.values():
+            print("kernel", json.dumps(r))
+
     with phase("band probe kernel vs plain"):
         band_recs = band_kernel_records(dev)
         for r in band_recs.values():
@@ -2619,13 +2668,13 @@ def main() -> int:
         c = int(cnt)
         filt_ms = cuda_ms(lambda: filter_compact(d_data, pred, d_pay), 3)
         EVENT_MS["filter 64M u32 + u32 at 10%"] = filt_ms
-        # the sort of (rank, data, payload) inside; the mask and the
-        # encodings are elementwise passes outside the model
-        f_bytes = psort.sort_traffic_bytes(FILTER_N, 3)
+        # the partition of (data, payload); the mask is an elementwise
+        # pass outside the model
+        f_bytes = sk.partition_traffic_bytes(FILTER_N, (4, 4))
         print(json.dumps({"filter": "64M u32 + u32 payload", "n": FILTER_N,
                           "selectivity": c / FILTER_N, "ms": filt_ms,
                           "mrows_s": FILTER_N / filt_ms / 1e3,
-                          "sort_model_bytes": f_bytes,
+                          "model_bytes": f_bytes,
                           "bound_ms": f_bytes / PEAK_BYTES_S * 1e3}))
 
         del d_data, d_pay, f_data, f_pay
@@ -2693,9 +2742,9 @@ def main() -> int:
         del hk, hv, m, a_table
         a_ms = cuda_ms(analytics, 3)
         device_breakdown("analytics_query 64M", analytics)
-        # filter sort (rank, value, key), prefix sort (packed key, value),
+        # filter partition (value, key), prefix sort (packed key, value),
         # the dense group ends' one-column sort, and the value scan
-        a_bytes = (psort.sort_traffic_bytes(ANALYTICS_N, 3)
+        a_bytes = (sk.partition_traffic_bytes(ANALYTICS_N, (4, 4))
                    + psort.sort_traffic_bytes(ANALYTICS_N, 2)
                    + psort.sort_traffic_bytes(ANALYTICS_N, 1)
                    + sk.scan_traffic_bytes(ANALYTICS_N, torch.uint32))
@@ -2792,7 +2841,9 @@ def main() -> int:
                           family_recs["rank_hist 16"],
                           family_recs["rank_hist_limb 16 28"],
                           query_recs["dense_agg 4"],
-                          query_recs["chunk_copy"]]
+                          query_recs["chunk_copy"],
+                          part_recs["partition q2"],
+                          part_recs["partition q18"]]
     u32_recs[2]["ms_by_distance"] = {
         j: family_recs[f"pair_cross {j}"]["ms"] for j in (1, 16, 32, 1024)}
     u32_recs[2]["ms_by_span"] = {
@@ -2826,6 +2877,8 @@ REPLACES = {
     "rank_hist_limb": "cl_ops_tpu/ops/sort/satradix.py:62",
     "dense_agg": "cl_ops_tpu/ops/exec/dense_agg.py:56",
     "chunk_copy": "cl_ops_tpu/ops/sort/dma_scatter.py:47",
+    "partition": "none: the sort-ride compaction of "
+                 "cl_ops_tpu/ops/exec/filter.py, a TPU scatter workaround",
 }
 
 # The cell (report()'s name, or EVENT_MS's key for main()'s own cells) of
@@ -2857,8 +2910,8 @@ BENCH_ALL_NOTES = {
                    "single_launch=1 1M cell fixes another geometry)",
     "sort_u64kv_16M": "the cell sorts at the default geometry and random "
                       "values; bench_all at autotune=1 with values 0..n-1",
-    "filter_64M_sel10": "the cell carries a u32 payload (a 3-column sort); "
-                        "bench_all filters the column alone (2 columns)",
+    "filter_64M_sel10": "the cell carries a u32 payload; bench_all "
+                        "filters the column alone",
     "join_expand_16Mx4": "the cell sorts the build side with abitonic, "
                          "bench_all with xla (outside the timed call)",
 }

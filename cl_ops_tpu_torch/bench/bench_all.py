@@ -22,7 +22,8 @@ rate is rows per second of one call, timed by `time_adaptive` (a batch of
 at least `--runs` calls, deepened to fill `--target-s`). Each row's
 `gb_s` and `roofline_frac` come from the JAX CLI's bytes models, on the
 port's functions (`sort_traffic_bytes`, `band_pass_traffic_bytes`,
-`abitonic_traffic_bytes`; q1 sorts 3 columns here, 4 in JAX), and need the
+`abitonic_traffic_bytes`; q1 sorts 3 columns here, 4 in JAX; the filter
+partitions, `partition_traffic_bytes`, where JAX sorts), and need the
 card's measured stream ceiling or `$CL_OPS_ROOFLINE_GBS`.
 
 Every config's output is checked against numpy first (where the JAX CLI
@@ -57,6 +58,7 @@ from cl_ops_tpu_torch.models import pipeline as pl
 from cl_ops_tpu_torch.ops import exec as ex
 from cl_ops_tpu_torch.ops.exec import bandprobe, psort
 from cl_ops_tpu_torch.ops.exec import join as jn
+from cl_ops_tpu_torch.ops.scan import kernels as sk
 from cl_ops_tpu_torch.ops.sort import sort_new
 from cl_ops_tpu_torch.ops.sort.bitonic import abitonic_traffic_bytes
 from cl_ops_tpu_torch.utils.platform import default_device
@@ -172,7 +174,7 @@ def config_3(ctx):
     out = fn(dx)
     fails = checks.filter_rows(x, x < FILTER_THRESHOLD, *out)
     return [ctx.row("filter_64M_sel10", "Mrows/s", n, fn, (dx,),
-                    4 * n + psort.sort_traffic_bytes(n, 2), fails)], \
+                    sk.partition_traffic_bytes(n, (4,)), fails)], \
         {"filter": out}
 
 

@@ -34,6 +34,7 @@ from cl_ops_tpu_torch.bench.roofline import GBS_ENV, roofline_row
 from cl_ops_tpu_torch.ops import exec as ex
 from cl_ops_tpu_torch.ops.exec import bandprobe, psort
 from cl_ops_tpu_torch.ops.exec import join as jn
+from cl_ops_tpu_torch.ops.scan import kernels as sk
 from cl_ops_tpu_torch.ops.sort import sort_new
 from cl_ops_tpu_torch.utils.platform import default_device
 
@@ -86,7 +87,7 @@ def _filter(args, n, rng, dev):
         return checks.filter_rows(host, host < thresh, *out)
     return (lambda v: ex.filter_compact(v, pred),
             (interop.to_torch(host, dev),), check,
-            4 * n + psort.sort_traffic_bytes(n, 2))
+            sk.partition_traffic_bytes(n, (4,)))  # JAX: a 2-column sort
 
 
 def _aggregate(args, n, rng, dev):

@@ -1,8 +1,10 @@
 // Single-pass prefix scans for Hopper (sm_90a): the plain integer sum
 // (scan_carry, mod 2^32 or mod 2^64) and the segmented add/min/max scan
-// (seg_scan_carry). Built with nvcc into a shared library with a plain C
-// interface and loaded with ctypes (cl_ops_tpu_torch/ops/scan/kernels.py and
-// segmented.py, which also hold each kernel's plain PyTorch version).
+// (seg_scan_carry), and the filter's stable partition on the same look-back
+// (partition, its own section below). Built with nvcc into a shared library
+// with a plain C interface and loaded with ctypes
+// (cl_ops_tpu_torch/ops/scan/kernels.py and segmented.py, which also hold
+// each kernel's plain PyTorch version).
 //
 // Replaces cl_ops_tpu/ops/scan/kernels.py _scan_carry_kernel (32-bit sums),
 // _wide_scan_carry_kernel (64-bit sums) and cl_ops_tpu/ops/scan/segmented.py
@@ -806,6 +808,222 @@ static int launch_block(const void* x, const void* base, void* out,
   return (int)cudaGetLastError();
 }
 
+// --- partition: the filter's stable partition ---------------------------------
+//
+// Replaces no Pallas kernel. cl_ops_tpu/ops/exec/filter.py compacts by
+// sorting the unique key (!keep) * n + position with every column as
+// payload, because XLA's scatter is element-serialized on a TPU; that
+// workaround costs a whole bitonic sort padded to a power of two, whatever
+// the number of kept rows. Here the partition is what it is: kept row i
+// goes to kept_before(i), dropped row i to count + i - kept_before(i), so
+// both halves keep their original order (the sort's output, bit for bit).
+//
+// Bound: bytes, n * (2 + 2 * width) for columns of `width` bytes in all:
+// the mask read twice, each column read once and written once. The design
+// meets it with two launches for up to P_MAX_COLS columns (one more per
+// further P_MAX_COLS columns, which reads the mask again):
+//
+//   * partition_count_tiles reads the mask with 16-byte loads, P_GROUP tiles
+//     of P_TILE rows a block, counts the kept rows of each tile (nonzero
+//     bytes), and takes the exclusive prefix of the block's total by
+//     scan_carry's decoupled look-back on the same per-stream status buffer.
+//     It writes each tile's kept-before (base) and, in the last block, the
+//     kept count (int64) on the card: O(n / P_TILE) bytes of scratch and no
+//     host read.
+//   * partition_move_tiles ranks a tile's rows in the block (a warp ballot
+//     and popcount for each 32 rows, then one scan of the P_ITEMS x P_WARPS
+//     ballot counts), keeps each row's slot in the partitioned tile in
+//     registers, and for each column stages the tile in shared memory
+//     already partitioned, then writes it out as two contiguous runs, the
+//     kept rows at base and the dropped rows at count + tile start - base.
+//     Loads and stores are warp-striped at each column's own width, so a
+//     warp's accesses are contiguous.
+
+#define P_THREADS 512
+#define P_WARPS (P_THREADS / 32)
+#define P_ITEMS 16                       // rows a thread, warp-striped
+#define P_TILE (P_THREADS * P_ITEMS)     // rows a tile: 8192
+#define P_GROUP 8                        // tiles one count block reads
+#define P_MAX_COLS 8                     // columns one move launch takes
+#define P_MAX_SMEM (P_TILE * 8)          // one tile of an 8-byte column
+
+static_assert(P_ITEMS == 16, "a count thread reads one 16-byte vector a tile");
+
+struct PartCols {
+  const void* in[P_MAX_COLS];
+  void* out[P_MAX_COLS];
+  int width[P_MAX_COLS];
+  int n;
+};
+
+__host__ __device__ static long long part_tiles_of(long long n) {
+  return (n + P_TILE - 1) / P_TILE;
+}
+static long long part_groups_of(long long n) {
+  return (part_tiles_of(n) + P_GROUP - 1) / P_GROUP;
+}
+
+// The number of nonzero bytes of w.
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned w) {
+  return __popc((((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u);
+}
+
+__global__ void __launch_bounds__(P_THREADS)
+    partition_count_tiles(const uint8_t* __restrict__ mask, long long n,
+                          int aligned, unsigned* __restrict__ base,
+                          long long* __restrict__ count, unsigned* ticket,
+                          unsigned long long* st) {
+  __shared__ unsigned s_group;
+  __shared__ unsigned s_c[P_GROUP][P_WARPS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_group = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const long long group = s_group;
+#pragma unroll
+  for (int g = 0; g < P_GROUP; ++g) {
+    const long long at = (group * P_GROUP + g) * P_TILE + threadIdx.x * 16LL;
+    unsigned c = 0;
+    if (aligned && at + 16 <= n) {
+      const uint4 q = *reinterpret_cast<const uint4*>(mask + at);
+      c = nonzero_bytes(q.x) + nonzero_bytes(q.y) + nonzero_bytes(q.z) +
+          nonzero_bytes(q.w);
+    } else {
+      for (int i = 0; i < 16 && at + i < n; ++i) c += mask[at + i] != 0;
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) c += __shfl_xor_sync(FULL, c, d);
+    if (lane == 0) s_c[g][warp] = c;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    unsigned t = 0;  // lane g < P_GROUP: tile g's kept rows
+    if (lane < P_GROUP)
+      for (int w = 0; w < P_WARPS; ++w) t += s_c[lane][w];
+    unsigned inc = t;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned o = __shfl_up_sync(FULL, inc, d);
+      if (lane >= d) inc += o;
+    }
+    const unsigned agg = __shfl_sync(FULL, inc, 31);
+    const unsigned before = carry_look_back<unsigned>(st, group, agg, lane);
+    const long long tile = group * P_GROUP + lane;
+    if (lane < P_GROUP && tile < part_tiles_of(n)) base[tile] = before + inc - t;
+    if (lane == 0 && group == gridDim.x - 1) *count = (long long)(before + agg);
+  }
+  clear_status(ticket, st, (long long)gridDim.x);
+}
+
+// One column of a tile: staged in shared memory at each row's slot (pk:
+// two 16-bit slots a word), then written out as the kept run and the
+// dropped run.
+template <class T>
+__device__ __forceinline__ void move_col(const void* in_v, void* out_v,
+                                         long long t0, int valid,
+                                         const unsigned (&pk)[P_ITEMS / 2],
+                                         int kept, long long kb, long long db,
+                                         void* stage) {
+  const T* __restrict__ in = static_cast<const T*>(in_v) + t0;
+  T* __restrict__ out = static_cast<T*>(out_v);
+  T* s = static_cast<T*>(stage);
+  T v[P_ITEMS];
+#pragma unroll
+  for (int k = 0; k < P_ITEMS; ++k) {
+    const int r = k * P_THREADS + threadIdx.x;
+    v[k] = r < valid ? in[r] : T(0);
+  }
+#pragma unroll
+  for (int k = 0; k < P_ITEMS; ++k) {
+    const int r = k * P_THREADS + threadIdx.x;
+    if (r < valid) s[(pk[k >> 1] >> (16 * (k & 1))) & 0xFFFFu] = v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < P_ITEMS; ++k) {
+    const int e = k * P_THREADS + threadIdx.x;
+    if (e < valid) {
+      if (e < kept)
+        out[kb + e] = s[e];
+      else
+        out[db + (e - kept)] = s[e];
+    }
+  }
+  __syncthreads();  // the stage is free for the next column
+}
+
+__global__ void __launch_bounds__(P_THREADS, 2)
+    partition_move_tiles(const uint8_t* __restrict__ mask, long long n,
+                         const unsigned* __restrict__ base,
+                         const long long* __restrict__ count, PartCols cols) {
+  extern __shared__ uint4 s_stage[];
+  __shared__ unsigned s_pre[P_ITEMS * P_WARPS];
+  __shared__ unsigned s_kept;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long tile = blockIdx.x;
+  const long long t0 = tile * P_TILE;
+  const int valid = (int)(n - t0 < P_TILE ? n - t0 : P_TILE);
+  unsigned ball[P_ITEMS];
+#pragma unroll
+  for (int k = 0; k < P_ITEMS; ++k) {
+    const int r = k * P_THREADS + threadIdx.x;
+    ball[k] = __ballot_sync(FULL, r < valid && mask[t0 + r] != 0);
+    if (lane == 0) s_pre[k * P_WARPS + warp] = __popc(ball[k]);
+  }
+  __syncthreads();
+  if (warp == 0) {  // exclusive scan of the counts in row order (k, warp)
+    constexpr int PER = P_ITEMS * P_WARPS / 32;
+    unsigned c[PER], t = 0;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      c[j] = s_pre[lane * PER + j];
+      t += c[j];
+    }
+    unsigned inc = t;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned o = __shfl_up_sync(FULL, inc, d);
+      if (lane >= d) inc += o;
+    }
+    unsigned ex = inc - t;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      s_pre[lane * PER + j] = ex;
+      ex += c[j];
+    }
+    if (lane == 31) s_kept = inc;
+  }
+  __syncthreads();
+  const int kept = (int)s_kept;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned pk[P_ITEMS / 2] = {};
+#pragma unroll
+  for (int k = 0; k < P_ITEMS; ++k) {
+    const int r = k * P_THREADS + threadIdx.x;
+    const int rank = (int)(s_pre[k * P_WARPS + warp] + __popc(ball[k] & below));
+    const int slot = (ball[k] >> lane) & 1u ? rank : kept + r - rank;
+    pk[k >> 1] |= (unsigned)slot << (16 * (k & 1));
+  }
+  const long long kb = base[tile];
+  const long long db = *count + t0 - kb;
+  for (int c = 0; c < cols.n; ++c) {
+    switch (cols.width[c]) {
+      case 1:
+        move_col<uint8_t>(cols.in[c], cols.out[c], t0, valid, pk, kept, kb, db, s_stage);
+        break;
+      case 2:
+        move_col<uint16_t>(cols.in[c], cols.out[c], t0, valid, pk, kept, kb, db, s_stage);
+        break;
+      case 4:
+        move_col<uint32_t>(cols.in[c], cols.out[c], t0, valid, pk, kept, kb, db, s_stage);
+        break;
+      default:
+        move_col<unsigned long long>(cols.in[c], cols.out[c], t0, valid, pk, kept, kb, db, s_stage);
+    }
+  }
+}
+
 // Bytes of the status buffer scan_carry of n elements of value_bytes needs
 // (zeroed before its first use; each call leaves it zeroed), and its
 // elements per tile.
@@ -883,4 +1101,70 @@ extern "C" int clo_seg_scan_carry(const void* x, const void* flags, void* out,
     }
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Rows a partition tile holds, the columns one move launch takes, and the
+// bytes of partition_count_tiles' status buffer for n rows: the ticket and
+// the count of finished blocks (padded to 16 bytes), then one 64-bit word
+// per block of P_GROUP tiles (zeroed before its first use; each call leaves
+// it zeroed).
+extern "C" int clo_partition_tile() { return P_TILE; }
+extern "C" int clo_partition_group() { return P_GROUP; }
+extern "C" int clo_partition_max_cols() { return P_MAX_COLS; }
+
+extern "C" long long clo_partition_status_bytes(long long n) {
+  return 16 + 8 * part_groups_of(n);
+}
+
+// partition, launch 1: each tile's kept rows before it into base (one
+// uint32 per P_TILE rows) and the kept count into *count (int64), from a
+// mask of n bytes (nonzero: kept).
+extern "C" int clo_partition_count(const void* mask, long long n, void* base,
+                                   void* count, void* status, void* stream) {
+  const long long groups = part_groups_of(n);
+  if (groups == 0) return 0;
+  const int aligned = reinterpret_cast<uintptr_t>(mask) % 16 == 0;
+  char* p = static_cast<char*>(status);
+  partition_count_tiles<<<(unsigned)groups, P_THREADS, 0,
+                          (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(mask), n, aligned,
+      static_cast<unsigned*>(base), static_cast<long long*>(count),
+      reinterpret_cast<unsigned*>(p),
+      reinterpret_cast<unsigned long long*>(p + 16));
+  return (int)cudaGetLastError();
+}
+
+// partition, launch 2 (and one more for each further P_MAX_COLS columns):
+// n_cols columns of widths[c] bytes (1, 2, 4 or 8) from ins[c] to outs[c],
+// the kept rows first and the dropped rows after them, each in their
+// original order, from the mask and clo_partition_count's base and count.
+extern "C" int clo_partition_move(const void* mask, long long n,
+                                  const void* base, const void* count,
+                                  const void* const* ins, void* const* outs,
+                                  const int* widths, int n_cols,
+                                  void* stream) {
+  if (n_cols < 1 || n_cols > P_MAX_COLS) return (int)cudaErrorInvalidValue;
+  PartCols cols = {};
+  int widest = 1;
+  for (int c = 0; c < n_cols; ++c) {
+    const int w = widths[c];
+    if (w != 1 && w != 2 && w != 4 && w != 8) return (int)cudaErrorInvalidValue;
+    cols.in[c] = ins[c];
+    cols.out[c] = outs[c];
+    cols.width[c] = w;
+    widest = w > widest ? w : widest;
+  }
+  cols.n = n_cols;
+  const long long tiles = part_tiles_of(n);
+  if (tiles == 0) return 0;
+  static std::mutex mu;
+  static bool set_on[64] = {};
+  int err = allow_smem((const void*)partition_move_tiles, P_MAX_SMEM, mu,
+                       set_on);
+  if (err) return err;
+  partition_move_tiles<<<(unsigned)tiles, P_THREADS, P_TILE * widest,
+                         (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(mask), n, static_cast<const unsigned*>(base),
+      static_cast<const long long*>(count), cols);
+  return (int)cudaGetLastError();
 }

@@ -41,7 +41,7 @@ def from_i32(c: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def flag_pos_key(flag_i32: torch.Tensor, n: int) -> torch.Tensor:
     """`flag * n + position`: one unique i32 key whose ascending sort is a
-    STABLE partition. Requires 2n < 2^31 (see filter_compact)."""
+    STABLE partition. Requires 2n < 2^31 (the callers check it)."""
     pos = torch.arange(n, dtype=torch.int32, device=flag_i32.device)
     return flag_i32 * n + pos
 

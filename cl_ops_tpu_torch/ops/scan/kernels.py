@@ -1,4 +1,5 @@
-"""Prefix sums: scan_1d on the scan_carry and scan_block kernels.
+"""Prefix sums: scan_1d on the scan_carry and scan_block kernels; the
+filter's stable partition on scan_carry's look-back.
 
 Counterpart of `cl_ops_tpu/ops/scan/kernels.py`. Two designs, four CUDA
 kernels in `csrc/scan.cu`:
@@ -19,6 +20,13 @@ kernels in `csrc/scan.cu`:
     "scan_block_wide" for 64-bit sums mod 2^64 (replacing
     `_wide_scan_block_kernel`), which widens 32-bit input on load. The
     input is read twice (block sums, kernel) and the sums written once.
+
+`partition` (filter_compact's compaction; no Pallas counterpart) moves
+columns of any width with the kept rows first and the dropped rows after
+them, both in their original order: two launches of `csrc/scan.cu`, the
+kept rows a tile with their exclusive prefix by look-back, then the ranked
+move of up to PART_MAX_COLS columns (one more launch for each further
+PART_MAX_COLS).
 
 The look-back kernels share one status buffer per (device, stream),
 zeroed when it is made; each call's last block clears what the call used,
@@ -49,7 +57,8 @@ from cl_ops_tpu_torch.utils import intmath
 from cl_ops_tpu_torch.utils.bits import cdiv
 from cl_ops_tpu_torch.utils.platform import build_library, launch_stream
 
-KERNELS = ("scan_carry", "scan_carry_wide", "scan_block", "scan_block_wide")
+KERNELS = ("scan_carry", "scan_carry_wide", "scan_block", "scan_block_wide",
+           "partition")
 TILE = 4096    # elements per tile of scan_block: csrc/scan.cu TILE
 THREADS = 512  # csrc/scan.cu THREADS (and C_THREADS)
 WARPS = THREADS // 32
@@ -61,6 +70,11 @@ CARRY_TILE = {4: CARRY_TILE_BYTES // 4, 8: CARRY_TILE_BYTES // 8}
 # S_TILE); its dynamic shared memory is the tile's values and flags
 SEG_THREADS = 256
 SEG_TILE = 8192
+# partition's rows a tile, tiles a count block and columns a move launch
+# (csrc/scan.cu P_TILE, P_GROUP, P_MAX_COLS)
+PART_TILE = 8192
+PART_GROUP = 8
+PART_MAX_COLS = 8
 
 # Kernel launches per wrapper since the last reset_launches().
 launches = dict.fromkeys(KERNELS, 0)
@@ -101,6 +115,19 @@ def load_kernels():
         lib.clo_scan_block.argtypes = [p, p, p, ll, i, i, p]
         lib.clo_scan_block.restype = i
         lib.clo_scan_tile.restype = i
+        for fn in (lib.clo_partition_tile, lib.clo_partition_group,
+                   lib.clo_partition_max_cols):
+            fn.restype = i
+        lib.clo_partition_status_bytes.argtypes = [ll]
+        lib.clo_partition_status_bytes.restype = ll
+        # (mask, n, base, count, status, stream)
+        lib.clo_partition_count.argtypes = [p, ll, p, p, p, p]
+        lib.clo_partition_count.restype = i
+        # (mask, n, base, count, ins, outs, widths, n_cols, stream)
+        lib.clo_partition_move.argtypes = [
+            p, ll, p, p, ctypes.POINTER(p), ctypes.POINTER(p),
+            ctypes.POINTER(i), i, p]
+        lib.clo_partition_move.restype = i
         n = (1 << 20) + 1
         if lib.clo_scan_tile() != TILE or any(
                 lib.clo_scan_carry_tile(b) != t
@@ -108,9 +135,15 @@ def load_kernels():
                 != carry_status_bytes(n, b)
                 for b, t in CARRY_TILE.items()) \
                 or lib.clo_seg_scan_tile() != SEG_TILE \
-                or lib.clo_seg_scan_status_bytes(n) != seg_status_bytes(n):
+                or lib.clo_seg_scan_status_bytes(n) != seg_status_bytes(n) \
+                or (lib.clo_partition_tile(), lib.clo_partition_group(),
+                    lib.clo_partition_max_cols()) != (
+                        PART_TILE, PART_GROUP, PART_MAX_COLS) \
+                or lib.clo_partition_status_bytes(n) \
+                != partition_status_bytes(n):
             raise RuntimeError("csrc/scan.cu tile or status sizes differ "
-                               "from kernels.TILE / CARRY_TILE / SEG_TILE")
+                               "from kernels.TILE / CARRY_TILE / SEG_TILE / "
+                               "PART_*")
         _lib = lib
     return _lib
 
@@ -132,6 +165,12 @@ def seg_status_bytes(n: int) -> int:
     """csrc/scan.cu clo_seg_scan_status_bytes: a 16-byte ticket and tile
     count, then one 8-byte word per tile."""
     return 16 + 8 * cdiv(n, SEG_TILE)
+
+
+def partition_status_bytes(n: int) -> int:
+    """csrc/scan.cu clo_partition_status_bytes: a 16-byte ticket and block
+    count, then one 8-byte word per count block of PART_GROUP tiles."""
+    return 16 + 8 * cdiv(cdiv(n, PART_TILE), PART_GROUP)
 
 
 def _status_for(dev: torch.device, stream: int, need: int) -> torch.Tensor:
@@ -407,3 +446,77 @@ def scan_1d(x: torch.Tensor, *, sum_dtype, exclusive: bool = True,
     # the sums are u32 bits for unsigned sum types, i32 values otherwise
     return intmath.astype(res.view(torch.uint32) if intmath.is_unsigned(sd)
                           else res, sd)
+
+
+# --- partition: the filter's stable partition -------------------------------------
+
+# The integer type of each column width: the plain version scatters bits.
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def partition_traffic_bytes(n: int, col_bytes) -> int:
+    """Bytes partition moves for n rows of columns `col_bytes` wide: the
+    mask read once by the count launch and once by each move launch, every
+    column read once and written once."""
+    moves = cdiv(len(col_bytes), PART_MAX_COLS)
+    return n * ((1 + moves) + 2 * sum(col_bytes))
+
+
+def partition_plain(mask: torch.Tensor, cols) -> tuple:
+    """Plain version of partition: rank = exclusive cumsum of keep; kept row
+    i goes to rank[i], dropped row i to count + i - rank[i]."""
+    keep = mask != 0
+    k = keep.to(torch.int64)
+    count = k.sum()
+    rank = torch.cumsum(k, 0) - k
+    pos = torch.arange(k.numel(), device=k.device)
+    dest = torch.where(keep, rank, count + pos - rank)
+    outs = []
+    for c in cols:
+        out = torch.empty_like(c)
+        bits = _BITS[c.element_size()]
+        out.view(bits)[dest] = c.view(bits)
+        outs.append(out)
+    return (count, *outs)
+
+
+def partition(mask: torch.Tensor, cols) -> tuple:
+    """Stable partition of `cols` by `mask` (bool, or nonzero bytes: kept).
+
+    Returns (count, *moved): count, a 0-d int64 tensor on the mask's
+    device, is the kept rows' number; each moved column holds the kept rows
+    first and the dropped rows after them, both in their original order.
+    Columns are contiguous 1-D tensors of 1, 2, 4 or 8 bytes an element,
+    as long as the mask and on its device; each moves at its own width."""
+    cuda = check_1d(mask, (torch.bool, torch.uint8))
+    n = mask.numel()
+    for c in cols:
+        if c.dim() != 1 or not c.is_contiguous() or c.numel() != n \
+                or c.device != mask.device \
+                or c.element_size() not in _BITS:
+            raise BadArgsError("partition takes contiguous 1-D columns of "
+                               "1, 2, 4 or 8 bytes, as long as the mask "
+                               "and on its device")
+    if not cuda:
+        return partition_plain(mask, cols)
+    outs = tuple(torch.empty_like(c) for c in cols)
+    if n == 0:
+        return (torch.zeros((), dtype=torch.int64, device=mask.device), *outs)
+    count = torch.empty((), dtype=torch.int64, device=mask.device)
+    base = torch.empty(cdiv(n, PART_TILE), dtype=torch.int32,
+                       device=mask.device)
+    m8 = mask.view(torch.uint8)
+    run_kernel("clo_partition_count", mask.device, m8.data_ptr(), n,
+               base.data_ptr(), count.data_ptr(),
+               status_bytes=partition_status_bytes(n))
+    launches["partition"] += 1
+    for at in range(0, len(cols), PART_MAX_COLS):
+        group = range(at, min(at + PART_MAX_COLS, len(cols)))
+        k = len(group)
+        ins = (ctypes.c_void_p * k)(*(cols[g].data_ptr() for g in group))
+        dst = (ctypes.c_void_p * k)(*(outs[g].data_ptr() for g in group))
+        widths = (ctypes.c_int * k)(*(cols[g].element_size() for g in group))
+        run_kernel("clo_partition_move", mask.device, m8.data_ptr(), n,
+                   base.data_ptr(), count.data_ptr(), ins, dst, widths, k)
+        launches["partition"] += 1
+    return (count, *outs)

@@ -6,7 +6,11 @@ arrays and the k = 0 merge; multi_stage, block_sort and block_merge at
 every tile that the wrappers admit, at every column count's largest tile
 with full and tied key prefixes, at tiles of 1 to 1024 rows, on columns at
 an unaligned offset and back to back; scans of odd lengths, all ops and
-dtypes, with dense and nearly absent segment flags; the band probe with 1-2
+dtypes, with dense and nearly absent segment flags; the filter's partition
+at lengths around its tile with no, every, every other and tile-edge rows
+kept, columns of 1-8 bytes, more columns than a launch takes, an unaligned
+mask and calls back to back, and filter_compact launching it and no sort;
+the band probe with 1-2
 limbs, 1-3 value columns, empty and ragged build sides and several window
 starts, and its edge cases (windows at the build's start and clamped at
 its end, probes below every window row, equal high limbs, ragged probe
@@ -44,6 +48,7 @@ import numpy as np
 import pytest
 import torch
 import torch_band_cases as band_cases
+import torch_partition_cases as part_cases
 
 from cl_ops_tpu_torch import interop
 from cl_ops_tpu_torch.ops.exec import bandprobe as bp
@@ -252,6 +257,104 @@ def test_filter_on_card(cuda):
     assert c == int(m.sum())
     np.testing.assert_array_equal(interop.to_numpy(fx)[:c], x[m])
     np.testing.assert_array_equal(interop.to_numpy(fp)[:c], p[m])
+    # the dropped rows too, bit for bit with the plain version
+    want = filter_compact(interop.to_torch(x, "cpu"),
+                          lambda v: interop.widen_u32(v) < 2 ** 30,
+                          interop.to_torch(p, "cpu"))
+    for g, w in zip((fx, fp), want[1:]):
+        assert g.cpu().numpy().tobytes() == w.numpy().tobytes()
+
+
+def test_filter_compact_partitions_without_a_sort(cuda):
+    x = torch.arange(100_000, dtype=torch.int32, device=cuda)
+    bk.reset_launches()
+    sk.reset_launches()
+    c, fx, fy = filter_compact(x, lambda v: v % 7 == 3, x.to(torch.int64))
+    torch.cuda.synchronize()
+    assert sk.launches["partition"] == 2
+    assert not any(bk.launches.values())
+    keep = torch.arange(100_000) % 7 == 3
+    want = torch.cat([torch.arange(100_000)[keep],
+                      torch.arange(100_000)[~keep]])
+    assert int(c) == int(keep.sum())
+    assert torch.equal(fx.cpu(), want.to(torch.int32))
+    assert torch.equal(fy.cpu(), want)
+
+
+# --- the partition kernels (csrc/scan.cu) ---------------------------------------
+
+def _partition_both(m, cols, launches, dev="cuda"):
+    """The kernels on the card and the plain version on the CPU, from the
+    same numpy mask and columns; asserts the launches and that the count
+    and every column agree bit for bit, and with numpy's definition."""
+    tm = torch.from_numpy(m)
+    tc = [torch.from_numpy(c) for c in cols]
+    sk.reset_launches()
+    got = sk.partition(tm.to(dev), [c.to(dev) for c in tc])
+    torch.cuda.synchronize()
+    assert sk.launches["partition"] == launches
+    want = sk.partition_plain(tm, tc)
+    assert got[0].device.type == "cuda" and got[0].dim() == 0
+    assert got[0].dtype == torch.int64 and int(got[0]) == int(want[0])
+    for g, w, e in zip(got[1:], want[1:], part_cases.expected(m, cols)):
+        assert g.dtype == w.dtype
+        assert g.cpu().numpy().tobytes() == w.numpy().tobytes() \
+            == e.tobytes()
+
+
+@pytest.mark.parametrize("mask", part_cases.MASKS)
+@pytest.mark.parametrize("n", part_cases.LENGTHS)
+def test_partition_matches_plain(cuda, n, mask):
+    _partition_both(part_cases.mask(mask, n), part_cases.columns(n, n),
+                    2 if n else 0)
+
+
+@pytest.mark.parametrize("n", [3 * part_cases.TILE + 77, (1 << 24) + 5])
+def test_partition_more_columns_than_a_launch(cuda, n):
+    """12 columns: two move launches on the same ranks; at 2^24 + 5 rows,
+    a look-back chain of 257 count blocks."""
+    m = np.random.default_rng(n).random(n) < 0.3
+    cols = part_cases.columns(n, n + 1, part_cases.WIDTHS * 3)
+    assert sk.PART_MAX_COLS < len(cols) <= 2 * sk.PART_MAX_COLS
+    _partition_both(m, cols, 3)
+
+
+def test_partition_unaligned_mask(cuda):
+    """A mask one byte into its buffer: the count launch reads it byte by
+    byte."""
+    n = 5 * part_cases.TILE + 3
+    buf = np.random.default_rng(8).random(n + 1) < 0.5
+    tm = torch.from_numpy(buf).to(cuda)[1:]
+    cols = part_cases.columns(n, 9)
+    sk.reset_launches()
+    got = sk.partition(tm, [torch.from_numpy(c).to(cuda) for c in cols])
+    torch.cuda.synchronize()
+    assert sk.launches["partition"] == 2
+    assert int(got[0]) == int(buf[1:].sum())
+    for g, e in zip(got[1:], part_cases.expected(buf[1:], cols)):
+        assert g.cpu().numpy().tobytes() == e.tobytes()
+
+
+def test_partition_back_to_back(cuda):
+    """Calls queued on one stream without a synchronize, beside a
+    scan_carry on the same status buffer: each finds it zeroed."""
+    rng = np.random.default_rng(10)
+    cases = [(rng.random(n) < p, part_cases.columns(n, n))
+             for n, p in (((1 << 22) + 7, 0.01), (1 << 20, 0.9))]
+    x = torch.arange(1 << 20, dtype=torch.int32, device=cuda)
+    sk.reset_launches()
+    got = []
+    for m, cols in cases:
+        got.append(sk.partition(torch.from_numpy(m).to(cuda),
+                                [torch.from_numpy(c).to(cuda) for c in cols]))
+        scanned = sk.scan_carry(x)
+    torch.cuda.synchronize()
+    assert sk.launches["partition"] == 4 and sk.launches["scan_carry"] == 2
+    assert torch.equal(scanned.cpu(), sk.scan_carry_plain(x.cpu(), False))
+    for (m, cols), g in zip(cases, got):
+        assert int(g[0]) == int(m.sum())
+        for a, e in zip(g[1:], part_cases.expected(m, cols)):
+            assert a.cpu().numpy().tobytes() == e.tobytes()
 
 
 # --- the scan kernels (csrc/scan.cu) ------------------------------------------

@@ -1,14 +1,18 @@
 """filter_compact and count_where of cl_ops_tpu_torch against cl_ops_tpu's
-(Pallas bitonic compaction in interpret mode). The partition is stable and
-its rank prefix unique, so every output column is bit-identical."""
+(Pallas bitonic compaction in interpret mode), and the plain version of the
+partition beneath filter_compact against numpy. The JAX sort's rank prefix
+is unique and the port's partition stable, so every output column is
+bit-identical, the dropped rows included."""
 
 import numpy as np
 import pytest
 import torch
+import torch_partition_cases as part_cases
 
 from cl_ops_tpu_torch import interop
 from cl_ops_tpu_torch.core.errors import BadArgsError, BadDtypeError
 from cl_ops_tpu_torch.ops.exec import filter as tflt
+from cl_ops_tpu_torch.ops.scan import kernels as sk
 
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
@@ -72,8 +76,8 @@ def test_filter_compact_matches_reference(threshold, payload):
 
 
 def test_two_column_rank_path(monkeypatch):
+    # the JAX sort's wide (flag, position) rank; the port has one path
     monkeypatch.setattr(jflt, "_PACK_MAX", 1024)
-    monkeypatch.setattr(tflt, "_PACK_MAX", 1024)
     d = _data(2, 3000)
     cols = [d["u32"][::-1].copy(), d["i64"]]
     jout, tout = _run(d["u32"], cols, 2 ** 30)
@@ -106,3 +110,46 @@ def test_filter_rejects_bad_columns():
     with pytest.raises(BadArgsError):
         tflt.filter_compact(x, lambda v: v < 3, torch.zeros(15,
                                                            dtype=torch.int32))
+
+
+@pytest.mark.parametrize("mask", part_cases.MASKS)
+@pytest.mark.parametrize("n", part_cases.LENGTHS)
+def test_partition_plain_matches_numpy(n, mask):
+    m = part_cases.mask(mask, n)
+    cols = part_cases.columns(n, n)
+    got = sk.partition(torch.from_numpy(m),
+                       [torch.from_numpy(c) for c in cols])
+    assert got[0].dtype == torch.int64 and got[0].dim() == 0
+    assert int(got[0]) == int(m.sum())
+    for g, w in zip(got[1:], part_cases.expected(m, cols)):
+        assert g.numpy().tobytes() == w.tobytes()
+
+
+def test_partition_plain_more_columns_than_a_launch():
+    n = part_cases.TILE + 77
+    m = np.random.default_rng(5).random(n) < 0.3
+    cols = part_cases.columns(n, 6, part_cases.WIDTHS * 3)
+    assert len(cols) > sk.PART_MAX_COLS
+    got = sk.partition(torch.from_numpy(m),
+                       [torch.from_numpy(c) for c in cols])
+    assert int(got[0]) == int(m.sum())
+    for g, w in zip(got[1:], part_cases.expected(m, cols)):
+        assert g.numpy().tobytes() == w.tobytes()
+
+
+def test_partition_traffic_is_its_bound():
+    # the mask twice, each column once in and once out; a second move
+    # launch reads the mask once more
+    assert sk.partition_traffic_bytes(100, (4,)) == 100 * (2 + 2 * 4)
+    assert sk.partition_traffic_bytes(100, (4, 8)) == 100 * (2 + 2 * 12)
+    assert sk.partition_traffic_bytes(10, (1,) * 9) == 10 * (3 + 2 * 9)
+
+
+def test_partition_rejects_bad_columns():
+    m = torch.ones(8, dtype=torch.bool)
+    with pytest.raises(BadArgsError):
+        sk.partition(m, [torch.zeros(7, dtype=torch.int32)])
+    with pytest.raises(BadArgsError):
+        sk.partition(m, [torch.zeros(16, dtype=torch.int32)[::2]])
+    with pytest.raises(BadArgsError):
+        sk.partition(m.to(torch.int32), [torch.zeros(8, dtype=torch.int32)])

@@ -178,10 +178,12 @@ def test_active_step_holds_the_operator_spans(traced):
 def test_sort_attributes(traced):
     sorts = [s for s in traced["spans"] if s[0] == "sort"]
     assert sorts and all(s[1]["padded"] == nlpo2(s[1]["n"]) for s in sorts)
-    # filter_compact sorts its rank key and both carried int32 columns
-    first = _within(traced["spans"], _ops(traced["spans"])[0])
-    assert [s[1] for s in first] == [{"n": FILTER_N, "padded": 4096,
-                                      "cols": 3}]
+    # filter_compact partitions without a sort; the GROUP BY after it
+    # still sorts its rows
+    first, second = (_within(traced["spans"], op)
+                     for op in _ops(traced["spans"])[:2])
+    assert first == []
+    assert second[0][0] == "sort" and second[0][1]["n"] == FILTER_N
 
 
 def test_one_host_read_per_band_pass(traced):
