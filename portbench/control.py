@@ -23,12 +23,11 @@ from portbench import compare, run
 
 def readings(workload: str, seed: int, *, device: str = "cuda",
              scale: float = 1.0) -> dict:
-    import torch
     w = run.cell(workload)
     cfg = run.config(w["config"])
     mx = run.mix(w["config"], w["traffic"])
-    tables = run.module("data", w["config"]).generate(
-        cfg, seed, torch.device(device), scale)
+    tables = run.make_tables(w["config"], cfg, seed,
+                             run.cell_devices(w, device), scale)
     spans = run.Spans(False)
     program, control, refs = [], [], {}
     for q in mx["queries"]:

@@ -20,14 +20,13 @@ of `trace.aggregate` (the runtime call, else the linked op), and counts
 only when that time lies in a `pb.q:` query span. A span counts when it
 starts in a query span.
 
-A reader is handed only `trace.aggregate`'s result; `of` finds the events
-it was made from in the caller that holds both (`run._per_layer`).
+A reader is handed `trace.aggregate`'s result, in which `run._per_layer`
+keeps the `summarize` of the same events under "port"; `of` returns it.
 """
 
 from __future__ import annotations
 
 import bisect
-import sys
 
 from portbench import trace as tr
 
@@ -85,26 +84,14 @@ def overlap(a, b) -> int:
 
 def of(t: dict) -> dict | None:
     """The `summarize` of the events that `t`, the result of
-    `trace.aggregate`, was made from, kept in `t` under "port" (None: no
-    caller holds those events beside `t`)."""
-    if "port" not in t:
-        t["port"] = None
-        f = sys._getframe(1)
-        while f is not None:
-            local = f.f_locals
-            if any(v is t for v in local.values()):
-                for v in local.values():
-                    if isinstance(v, list) and v and all(
-                            isinstance(e, tr.Event) for e in v):
-                        t["port"] = summarize(v)
-                        return t["port"]
-            f = f.f_back
-    return t["port"]
+    `trace.aggregate`, was made from, kept in `t` under "port" (None: none
+    kept)."""
+    return t.get("port")
 
 
-def summarize(events) -> dict:
-    """The port's spans in the traced window of `events`, which runs from
-    the first query span's start to the last's end, as in
+def summarize(events, cards: int = 1) -> dict:
+    """The port's spans in the traced window of `events` on `cards` cards,
+    which runs from the first query span's start to the last's end, as in
     `trace.aggregate`.
 
     Returns {"ops": {layer: outermost clo.op spans}, "kind_s": {span kind:
@@ -113,7 +100,7 @@ def summarize(events) -> dict:
     padded), "syncs" (clo.sync spans), "fallbacks" (clo.join:fallback
     spans), "host_s" (host s in the outermost clo.op spans less their
     clo.sync spans), "idle_s" (device idle s while the host is in an
-    outermost clo.op span)}.
+    outermost clo.op span: on each card, then the mean over the cards)}.
     """
     queries = sorted((e.start, e.end) for e in events if e.kind == "query")
     if not queries:
@@ -123,9 +110,7 @@ def summarize(events) -> dict:
     launch_at = {e.corr: e.start for e in events if e.kind == "launch"}
     op_at = {e.corr: e.start for e in events
              if e.kind in ("cpu", "op", "query")}
-    busy = tr.union((max(e.start, w0), min(e.end, w1)) for e in events
-                    if e.kind in ("kernel", "device")
-                    and e.end > w0 and e.start < w1)
+    busy = tr.busy(events, w0, w1, cards)
 
     def in_query(t):
         i = bisect.bisect_right(qstarts, t) - 1
@@ -178,9 +163,8 @@ def summarize(events) -> dict:
             out["kind_s"][kinds[i]] = (out["kind_s"].get(kinds[i], 0.0)
                                        + (e.end - e.start) * 1e-9)
 
-    edges = [w0] + [x for iv in busy for x in iv] + [w1]
-    idle = [(a, b) for a, b in zip(edges[::2], edges[1::2]) if b > a]
     held = [(max(spans[i].start, w0), min(spans[i].end, w1))
             for i in outer_ops]
-    out["idle_s"] = overlap(idle, held) * 1e-9
+    out["idle_s"] = sum(overlap(tr.idle(card, w0, w1), held) * 1e-9
+                        for card in busy) / cards
     return out

@@ -12,6 +12,13 @@ each ending when its result is on the host. After the window every result
 is compared with the plain reference. With --trace 1 a shorter window of
 whole rounds runs under torch.profiler and the per-layer metrics are
 printed instead of the end-to-end ones.
+
+A cell of N chips runs on cuda:0 .. cuda:N-1 from this one process: its
+generator gets the list of devices and holds each table one shard per
+device. The harness waits on every card, reads each card's memory (the
+working memory is the largest card's own, the peak the fullest card's), and
+reads each card's busy time from the trace (the idle share is the mean over
+the cards; device seconds of a layer are summed over them).
 """
 
 from __future__ import annotations
@@ -124,16 +131,87 @@ def to_host(result: dict) -> dict:
             "counts": {k: int(v) for k, v in result["counts"].items()}}
 
 
+def rows(column) -> int:
+    """Rows of a column: a tensor's, or the sum over its shards where it is
+    held one shard per device (a list or tuple of tensors, or an object with
+    `.shards`, such as the port's `Sharded`)."""
+    shards = getattr(column, "shards", column)
+    if isinstance(shards, (list, tuple)):
+        return sum(s.shape[0] for s in shards)
+    return column.shape[0]
+
+
 def table_sizes(tables: dict) -> dict:
-    return {name: next(iter(cols.values())).shape[0]
+    """Rows of each table, from its first column."""
+    return {name: rows(next(iter(cols.values())))
             for name, cols in tables.items()}
 
 
+def cell_devices(w: dict, device: str = "cuda", devices=None) -> list:
+    """The cell's devices: `device` for a cell of one chip, cuda:0 ..
+    cuda:N-1 for one of N, or `devices` where given (tests: a CPU list, or
+    one card repeated). Raises ValueError where `devices` holds another
+    number than the cell's chips."""
+    import torch
+    if devices is None:
+        n = w["chips"]
+        devices = [device] if n == 1 else [f"{device}:{i}" for i in range(n)]
+    if len(devices) != w["chips"]:
+        raise ValueError(f"{len(devices)} devices for a cell of "
+                         f"{w['chips']} chips")
+    return [torch.device(d) for d in devices]
+
+
+def make_tables(config_name: str, cfg: dict, seed: int, devices: list,
+                scale: float = 1.0) -> dict:
+    """The configuration's tables from the seed: on the one device, or one
+    shard per device of a cell of several."""
+    generate = module("data", config_name).generate
+    return generate(cfg, seed, devices[0] if len(devices) == 1 else devices,
+                    scale)
+
+
+class Cards:
+    """The distinct CUDA cards among a cell's devices, in device order:
+    what the harness waits on and reads memory from (none on the CPU)."""
+
+    def __init__(self, devices):
+        import torch
+        self.cuda = torch.cuda
+        self.cards = list(dict.fromkeys(d for d in devices
+                                        if d.type == "cuda"))
+
+    def sync(self):
+        for d in self.cards:
+            self.cuda.synchronize(d)
+
+    def allocated(self) -> list:
+        return [self.cuda.memory_allocated(d) for d in self.cards]
+
+    def peaks(self) -> list:
+        return [self.cuda.max_memory_allocated(d) for d in self.cards]
+
+    def reset_peaks(self):
+        for d in self.cards:
+            self.cuda.reset_peak_memory_stats(d)
+
+
+def memory(resident: list, setup_peak: list, peak: list) -> tuple:
+    """(working bytes, the fullest card's peak, each card's peak) from each
+    card's bytes after set-up, its peak in set-up and its peak in the
+    window. The working bytes are the largest of each card's own peak less
+    its resident tables: what has to fit beside the tables on the card that
+    runs out first."""
+    per_card = [max(s, p) for s, p in zip(setup_peak, peak)]
+    work = max((p - r for p, r in zip(peak, resident)), default=0)
+    return work, max(per_card, default=0), per_card
+
+
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
-             device: str = "cuda", scale: float = 1.0,
+             device: str = "cuda", devices=None, scale: float = 1.0,
              age=process_age_s) -> dict:
-    """One run of a cell. Returns the result line's object, the compared
-    numbers under "checks" (last)."""
+    """One run of a cell on its devices (`cell_devices`). Returns the
+    result line's object, the compared numbers under "checks" (last)."""
     import torch
     w = cell(workload)
     cfg = config(w["config"])
@@ -142,21 +220,21 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     queries = [(q["query"], q.get("params", {}), module("plans", q["query"]))
                for q in mx["queries"]]
     t_port = age()
-    dev = torch.device(device)
+    devs = cell_devices(w, device, devices)
+    dev = devs[0]
     on_card = dev.type == "cuda"
+    cards = Cards(devs)
+    sync = cards.sync
 
-    def sync():
-        if on_card:
-            torch.cuda.synchronize(dev)
-
-    torch.zeros(1, device=dev)          # the context, before the tables
+    for d in dict.fromkeys(devs):       # the contexts, before the tables
+        torch.zeros(1, device=d)
     sync()
     t_start = age()
-    tables = module("data", w["config"]).generate(cfg, seed, dev, scale)
+    tables = make_tables(w["config"], cfg, seed, devs, scale)
     sizes = table_sizes(tables)
     sync()
     t_tables = age()
-    resident = torch.cuda.memory_allocated(dev) if on_card else 0
+    resident = cards.allocated()
     spans = Spans(trace)
 
     def run_query(i):
@@ -167,14 +245,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     for i in range(WARMUP_ROUNDS * len(queries)):
         run_query(i)
     sync()
-    setup_peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
-    if on_card:
-        torch.cuda.reset_peak_memory_stats(dev)
+    setup_peak = cards.peaks()
+    cards.reset_peaks()
     setup_s = age()
     print(f"setup: torch imported {t_torch:.3f} s, the port "
           f"{t_port - t_torch:.3f} s, device context {t_start - t_port:.3f}"
           f" s, tables "
-          f"{t_tables - t_start:.3f} s ({resident} bytes), warm-up "
+          f"{t_tables - t_start:.3f} s ({sum(resident)} bytes), warm-up "
           f"{setup_s - t_tables:.3f} s", file=sys.stderr)
 
     results, times, events = [], [], []
@@ -206,11 +283,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         i += 1
         if time.perf_counter() - t0 >= limit and i % len(queries) == 0:
             break
+    sync()
     window_s = time.perf_counter() - t0
     if prof is not None:
         prof.step()
         prof.stop()
-    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    work, fullest, per_card = memory(resident, setup_peak, cards.peaks())
 
     found = forbidden_modules()
     if found:
@@ -222,22 +300,24 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     checks = compare.check(results, refs)
 
     if trace:
-        metrics, extra = _per_layer(workload, events, queries, sizes, refs)
+        metrics, extra = _per_layer(workload, events, queries, sizes, refs,
+                                    max(len(cards.cards), 1))
     else:
         fact = sizes[mx["fact_table"]]
         metrics = {"mrows_s": fact * len(results) / window_s / 1e6,
                    "query_ms_p95": float(np.percentile(times, 95)) * 1e3,
-                   "query_mem_gib": (peak - resident) / 2 ** 30,
+                   "query_mem_gib": work / 2 ** 30,
                    "setup_s": setup_s}
         metrics = {k: {"value": metrics[k], "unit": UNITS[k]} for k in E2E}
         extra = {}
     out = {"correct": checks["failed"] == 0, "attempted": len(results),
            "failed": checks["failed"], "metrics": metrics,
-           "device": {"platform": "gpu" if on_card else device,
+           "device": {"platform": "gpu" if on_card else dev.type,
                       "kind": (torch.cuda.get_device_name(dev) if on_card
-                               else device),
+                               else dev.type),
                       "count": w["chips"],
-                      "memory_peak_bytes": max(setup_peak, peak),
+                      "memory_peak_bytes": fullest,
+                      "memory_peak_bytes_per_card": per_card,
                       **extra.pop("device", {})},
            **extra}
     out["checks"] = {k: {"value": checks[k], "limit": compare.LIMITS[k]}
@@ -245,10 +325,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     return out
 
 
-def _per_layer(workload, events, queries, sizes, refs):
-    """The cell's per-layer metrics from the traced window's events."""
-    from portbench import roofline, trace as tr
-    agg = tr.aggregate(events)
+def _per_layer(workload, events, queries, sizes, refs, cards=1):
+    """The cell's per-layer metrics from the traced window's events on
+    `cards` cards. A reader gets `trace.aggregate`'s result with the port's
+    summary under "port" (`port_trace.of`)."""
+    from portbench import port_trace, roofline, trace as tr
+    agg = tr.aggregate(events, cards)
+    agg["port"] = port_trace.summarize(events, cards)
     per_query = {}
     for name, params, plan in queries:
         per_query[name] = {}
@@ -271,7 +354,8 @@ def _per_layer(workload, events, queries, sizes, refs):
     print(f"trace: {agg['queries']} queries, {agg['kernels']} kernels, "
           f"{agg['unattributed']} unattributed", file=sys.stderr)
     return metrics, {"device": {"busy_s": agg["busy_s"],
-                                "window_s": agg["window_s"]},
+                                "window_s": agg["window_s"],
+                                "busy_s_per_card": agg["busy_s_per_card"]},
                      "breakdown": {"device_ops": tr.top(agg["kernel_s"]),
                                    "idle_gaps": tr.top(agg["gaps"])}}
 

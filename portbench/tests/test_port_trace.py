@@ -1,8 +1,9 @@
 """The readers of the port's own spans (portbench/port_trace.py) on
 synthetic traces: kernels go to the innermost port span, idle counts only
 under an outermost operator span, the padding share and the counts are
-exact, the harness's own per-layer call reaches the events, and every key
-of `trace.aggregate` reads the same with the port's spans mixed in."""
+exact, the harness's own per-layer call hands the readers the port's
+summary, and every key of `trace.aggregate` reads the same with the port's
+spans mixed in."""
 
 import random
 
@@ -13,7 +14,7 @@ from portbench import run
 from portbench import trace as tr
 
 OLD = ("queries", "window_s", "busy_s", "kernels", "unattributed",
-       "layer_s", "kernel_s", "gaps")
+       "layer_s", "kernel_s", "gaps", "busy_s_per_card")
 NEW = ("sort_ms", "sort_pad_pct", "port_syncs_per_query",
        "join_fallbacks_per_query", "port_idle_pct", "port_host_ms")
 
@@ -36,8 +37,9 @@ def _events(spans, kernels):
 
 def _read(events):
     """The new metrics as the harness reads them: from the aggregate, with
-    the events it was made from beside it."""
+    the summary of the events it was made from under "port"."""
     agg = tr.aggregate(events)
+    agg["port"] = pt.summarize(events)
     return {m: run.metric(m).read(agg) for m in NEW}
 
 
@@ -88,7 +90,10 @@ def test_no_events_beside_the_aggregate_read_nothing():
             for m in NEW} == {m: None for m in NEW}
     events = _events(Q, [])
     agg = tr.aggregate(events)
-    assert pt.of(agg)["sorts"] == 2     # found beside it in this frame
+    # the events beside it in this frame are not searched for
+    assert pt.of(agg) is None
+    agg["port"] = pt.summarize(events)
+    assert pt.of(agg)["sorts"] == 2
 
 
 def test_kernels_go_to_the_innermost_span():
@@ -112,6 +117,7 @@ def test_idle_only_under_an_outermost_operator_span():
     kernels = [(0, 1000, 10), (4000, 6500, 20), (8000, 10_000, 30)]
     events = _events(Q, kernels)
     agg = tr.aggregate(events)
+    agg["port"] = pt.summarize(events)
     assert pt.summarize(events)["idle_s"] == pytest.approx(4500e-9)
     assert run.metric("port_idle_pct").read(agg) == pytest.approx(45.0)
     assert run.metric("device_idle_pct").read(agg) == pytest.approx(45.0)

@@ -7,9 +7,11 @@ kernel's correlation id leads to the runtime call that launched it (or, if
 the trace lacks that call, to the torch op it was linked to), and that
 call's host time decides the span. A kernel's own start time never does.
 Kernels launched in a query span but in no operator span are the plan's
-glue. The device's busy time is the union of its kernel, copy and set
+glue. A card's busy time is the union of its kernel, copy and set
 intervals over the traced window, so overlapping work is not counted
-twice.
+twice. On a cell of several cards the union is taken on each card, a card
+that ran nothing counts as idle throughout, and the busy time is the mean
+over the cards; device seconds of a layer or kernel are summed over them.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ class Event:
     end: int                # ns
     corr: int = 0           # correlation id
     linked: int = 0         # the torch op a launch or kernel is linked to
+    device: int = 0         # the card of a kernel or device event
 
 
 def _kind(e) -> str | None:
@@ -66,8 +69,10 @@ def from_profiler(prof) -> list[Event]:
     for e in prof.profiler.kineto_results.events():
         kind = _kind(e)
         if kind is not None:
+            on_card = kind in ("kernel", "device")
             out.append(Event(kind, e.name(), e.start_ns(), e.end_ns(),
-                             e.correlation_id(), e.linked_correlation_id()))
+                             e.correlation_id(), e.linked_correlation_id(),
+                             e.device_index() if on_card else 0))
     return out
 
 
@@ -97,14 +102,40 @@ def union(intervals):
     return out
 
 
-def aggregate(events: list[Event]) -> dict:
-    """Per-layer device seconds, launches, busy and idle time of a traced
-    window of whole queries.
+def idle(busy_intervals, w0: int, w1: int) -> list:
+    """The non-empty gaps of [w0, w1] between sorted disjoint busy
+    intervals that lie inside it."""
+    edges = [w0] + [x for iv in busy_intervals for x in iv] + [w1]
+    return [(a, b) for a, b in zip(edges[::2], edges[1::2]) if b > a]
 
-    Returns {"queries", "window_s", "busy_s", "kernels", "unattributed",
-    "layer_s": {layer: s}, "kernel_s": {kernel: s}, "gaps": {host span:
-    s}}. The window runs from the first query span's start to the last's
-    end.
+
+def busy(events: list[Event], w0: int, w1: int, cards: int = 1) -> list:
+    """Each card's busy intervals in the window [w0, w1]: the union of its
+    kernel, copy and set intervals. With one card every device event is
+    its; with several, an event's `device` names its card (0 .. cards - 1).
+    """
+    per_card = [[] for _ in range(cards)]
+    for e in events:
+        if e.kind in ("kernel", "device") and e.end > w0 and e.start < w1:
+            card = e.device if cards > 1 else 0
+            if not 0 <= card < cards:
+                raise ValueError(f"a device event on card {card} of a "
+                                 f"cell of {cards}")
+            per_card[card].append((max(e.start, w0), min(e.end, w1)))
+    return [union(iv) for iv in per_card]
+
+
+def aggregate(events: list[Event], cards: int = 1) -> dict:
+    """Per-layer device seconds, launches, busy and idle time of a traced
+    window of whole queries on `cards` cards (the cell's, not the trace's:
+    a card that ran nothing is idle throughout).
+
+    Returns {"queries", "window_s", "busy_s", "busy_s_per_card",
+    "kernels", "unattributed", "layer_s": {layer: s}, "kernel_s": {kernel:
+    s}, "gaps": {host span: s}}. The window runs from the first query
+    span's start to the last's end. "busy_s" is the mean of
+    "busy_s_per_card"; "layer_s", "kernel_s" and "gaps" are sums over the
+    cards.
     """
     queries = [e for e in events if e.kind == "query"]
     if not queries:
@@ -134,18 +165,16 @@ def aggregate(events: list[Event]) -> dict:
         kernel_s[name] = kernel_s.get(name, 0.0) + dur
         kernels += 1
 
-    busy = union((max(e.start, w0), min(e.end, w1)) for e in events
-                 if e.kind in ("kernel", "device")
-                 and e.end > w0 and e.start < w1)
+    per_card = busy(events, w0, w1, cards)
     gaps = {}
-    edges = [w0] + [x for iv in busy for x in iv] + [w1]
-    for g0, g1 in zip(edges[::2], edges[1::2]):
-        if g1 > g0:
+    for card in per_card:
+        for g0, g1 in idle(card, w0, w1):
             q = qspans.at(g0)
             label = f"{q}/{ospans.at(g0) or GLUE}" if q else "between_queries"
             gaps[label] = gaps.get(label, 0.0) + (g1 - g0) * 1e-9
+    busy_s = [sum(e - s for s, e in card) * 1e-9 for card in per_card]
     return {"queries": len(queries), "window_s": (w1 - w0) * 1e-9,
-            "busy_s": sum(e - s for s, e in busy) * 1e-9,
+            "busy_s": sum(busy_s) / cards, "busy_s_per_card": busy_s,
             "kernels": kernels, "unattributed": unattributed,
             "layer_s": layer_s, "kernel_s": kernel_s, "gaps": gaps}
 
